@@ -1,0 +1,42 @@
+"""nvcc -> shared library -> ctypes, cached by source hash."""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import subprocess
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR.parent / "build" / "slam_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME)")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+@functools.lru_cache(maxsize=None)
+def load_library(source: str) -> ctypes.CDLL:
+    """Compile ``csrc/<source>`` once per content and load it."""
+    src = CSRC_DIR / source
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    lib = BUILD_DIR / f"{src.stem}-{digest}.so"
+    if not lib.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}) for {src}:\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, lib)
+    return ctypes.CDLL(str(lib))

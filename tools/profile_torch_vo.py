@@ -1,0 +1,170 @@
+#!/usr/bin/env python
+"""Where the PyTorch port's main path spends its time on one CUDA card.
+
+    python3 tools/profile_torch_vo.py [--chunk 1] [--reps 3]
+                                      [--out build/profile_torch_vo.json]
+
+Runs ``chip_smoke.py``'s main-path configuration (S=4, 640x480, the
+device-SLAM bench's settings) and measures one 8-frame chunk, always the
+same one (``--chunk``), each time in a fresh session advanced to it:
+
+  1. its wall, unprofiled: host clock between two synchronises, ``--reps``
+     times;
+  2. per-stage wall: each stage of the frame step (and the window BA) timed
+     between a synchronise before and after it;
+  3. a ``torch.profiler`` trace: device busy time (the union of the CUDA
+     activities' intervals), their count, and the top device rows. The idle
+     share is 1 - busy / the median unprofiled wall of step 1.
+
+Prints a summary and writes everything to ``--out`` as JSON. Needs one card.
+"""
+import argparse
+import json
+import os
+import statistics
+import sys
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+
+import chip_smoke
+from slam_tpu_torch.pipeline import device_vo
+from slam_tpu_torch.pipeline.device_vo import BatchedDeviceVO, DeviceVOConfig
+
+STAGES = ("extract", "_match_map", "_pose_ba", "_refine_depths",
+          "_create_landmarks", "hamming_argmin", "_window_ba")
+
+
+def _busy_us(intervals):
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--chunk", type=int, default=1)
+    ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--out", default="build/profile_torch_vo.json")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("profile_torch_vo: no CUDA device")
+    _, smi = chip_smoke.phase_device()
+    cam, worlds, images, deltas = chip_smoke.make_inputs()
+    cfg = DeviceVOConfig(**chip_smoke.CFG)
+    p0 = np.stack([w.poses_cw[0] for w in worlds]).astype(np.float32)
+    C = chip_smoke.CHUNK
+
+    def chunk(c):
+        return images[:, c * C:(c + 1) * C], deltas[:, c * C:(c + 1) * C]
+
+    def session():
+        """A fresh session advanced to the measured chunk."""
+        vo = BatchedDeviceVO(cfg, batch=chip_smoke.S, camera=cam,
+                             device="cuda")
+        vo.reset(p0)
+        for c in range(args.chunk):
+            vo.advance(*chunk(c))
+        torch.cuda.synchronize()
+        return vo
+
+    def timed_chunk(vo):
+        t0 = time.perf_counter()
+        vo.advance(*chunk(args.chunk))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    session()                                 # warm-up: CUDA init, build
+    walls = [timed_chunk(session()) for _ in range(args.reps)]
+    wall = statistics.median(walls)
+
+    acc = {name: [0.0, 0] for name in STAGES}
+
+    def synced(name, fn):
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            acc[name][0] += time.perf_counter() - t0
+            acc[name][1] += 1
+            return out
+        return wrapper
+
+    originals = {name: getattr(device_vo, name) for name in STAGES}
+    vo = session()
+    try:
+        for name, fn in originals.items():
+            setattr(device_vo, name, synced(name, fn))
+        synced_wall = timed_chunk(vo)
+    finally:
+        for name, fn in originals.items():
+            setattr(device_vo, name, fn)
+
+    vo = session()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        profiled_wall = timed_chunk(vo)
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = _busy_us([(e.time_range.start, e.time_range.end)
+                        for e in dev]) / 1e3
+    rows = sorted(prof.key_averages(),
+                  key=lambda r: r.self_device_time_total, reverse=True)
+    top = [dict(name=r.key, self_device_ms=r.self_device_time_total / 1e3,
+                calls=r.count) for r in rows[:12]]
+
+    frames = chip_smoke.S * C
+    result = dict(
+        card=smi, torch=torch.__version__, chunk=args.chunk,
+        sequences=chip_smoke.S, frames_per_sequence=C,
+        wall_s=walls, wall_median_s=wall,
+        keyframes_per_s=frames / wall,
+        stage_synced_wall_s=synced_wall,
+        stages={k: dict(total_s=v[0], calls=v[1],
+                        ms_per_call=1e3 * v[0] / max(v[1], 1),
+                        share=v[0] / synced_wall) for k, v in acc.items()},
+        profiled_wall_s=profiled_wall,
+        device_busy_ms=busy_ms, device_activities=len(dev),
+        activities_per_frame=len(dev) / C,
+        idle_share=(1.0 - busy_ms / (1e3 * wall)) if dev else None,
+        top_device_rows=top)
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(result, f, indent=1)
+
+    print(f"chunk {args.chunk} ({chip_smoke.S} x {C} frames) on {smi}, "
+          f"torch {torch.__version__}")
+    print("unprofiled wall: " + ", ".join(f"{w:.4f}" for w in walls)
+          + f" s; median {wall:.4f} s = {frames / wall:.2f} keyframes/s")
+    print(f"stage-synchronised wall {synced_wall:.4f} s:")
+    for k, v in sorted(result["stages"].items(),
+                       key=lambda kv: -kv[1]["total_s"]):
+        print(f"  {k:18s} {v['ms_per_call']:9.3f} ms x {v['calls']:3d} "
+              f"= {100 * v['share']:5.1f} %")
+    if dev:
+        print(f"profiled wall {profiled_wall:.4f} s; device busy "
+              f"{busy_ms:.3f} ms in {len(dev)} activities "
+              f"({len(dev) / C:.0f} per frame); idle share against the "
+              f"unprofiled wall {100 * result['idle_share']:.2f} %")
+    else:
+        print("the profiler recorded no device activity: idle share not "
+              "measured")
+    for r in top:
+        print(f"  {r['self_device_ms']:9.3f} ms {r['calls']:6d} x {r['name']}")
+    print(f"wrote {args.out}")
+
+
+if __name__ == "__main__":
+    main()
