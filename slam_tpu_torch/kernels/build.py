@@ -25,7 +25,8 @@ def _nvcc() -> str:
 
 @functools.lru_cache(maxsize=None)
 def load_library(source: str) -> ctypes.CDLL:
-    """Compile ``csrc/<source>`` once per content and load it."""
+    """Compile ``csrc/<source>`` (or ``source``, if it is an absolute path)
+    once per content and load it."""
     src = CSRC_DIR / source
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]

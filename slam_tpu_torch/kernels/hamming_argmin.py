@@ -20,8 +20,9 @@ def _entry():
 
 
 def launch(desc: torch.Tensor, codebook: torch.Tensor):
-    """(N, 8) x (V, 8) int32 CUDA tensors -> (dist (N,), idx (N,)) int32,
-    on the current stream. Checks what the kernel cannot take."""
+    """(N, 8) x (V, 8) int32 CUDA tensors -> (dist (N,), idx (N,) int32,
+    number of kernel launches: 1, or 0 for N = 0), on the current stream.
+    Checks what the kernel cannot take."""
     for name, t in (("desc", desc), ("codebook", codebook)):
         if not t.is_cuda or t.dtype != torch.int32 or t.dim() != 2 \
                 or t.shape[1] != 8 or not t.is_contiguous():
@@ -36,10 +37,9 @@ def launch(desc: torch.Tensor, codebook: torch.Tensor):
     n, v = desc.shape[0], codebook.shape[0]
     if not 0 < v <= 65536:
         raise ValueError(f"codebook rows {v} outside 1..65536")
-    dist = torch.empty(n, dtype=torch.int32, device=desc.device)
-    idx = torch.empty(n, dtype=torch.int32, device=desc.device)
+    dist, idx = torch.empty((2, n), dtype=torch.int32, device=desc.device)
     if n == 0:
-        return dist, idx
+        return dist, idx, 0
     with torch.cuda.device(desc.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _entry()(desc.data_ptr(), codebook.data_ptr(), n, v,
@@ -47,4 +47,4 @@ def launch(desc: torch.Tensor, codebook: torch.Tensor):
     if err != 0:
         raise RuntimeError(f"hamming_argmin kernel launch failed: "
                            f"cudaError {err}")
-    return dist, idx
+    return dist, idx, 1

@@ -7,15 +7,16 @@ import os
 
 import numpy as np
 
-import slam_tpu
+DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "data")
 
 
 @functools.lru_cache(maxsize=4)
 def make_codebook(num_words: int) -> np.ndarray:
-    """(V, 8) uint32 binary centroids: the in-tree trained vocabulary
-    ``slam_tpu/data/vocab_<V>.npz``. Raises when that file is absent."""
-    path = os.path.join(os.path.dirname(slam_tpu.__file__), "data",
-                        f"vocab_{num_words}.npz")
+    """(V, 8) uint32 binary centroids: the port's copy of the trained
+    vocabulary, ``slam_tpu_torch/data/vocab_<V>.npz``. Raises when that
+    file is absent."""
+    path = os.path.join(DATA_DIR, f"vocab_{num_words}.npz")
     if not os.path.exists(path):
         raise FileNotFoundError(f"no trained vocabulary of {num_words} words "
                                 f"at {path}")

@@ -12,7 +12,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from slam_tpu.geometry.camera import Camera, KannalaBrandtCamera, PinholeCamera
+from slam_tpu_torch.geometry.camera import (Camera, KannalaBrandtCamera,
+                                            PinholeCamera)
 
 
 def pack_camera(cam: Camera) -> Tuple[str, np.ndarray]:

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from slam_tpu.params import ORB_PATCH_RADIUS
+from slam_tpu_torch.params import ORB_PATCH_RADIUS
 
 
 def _pad_edge(img: torch.Tensor, p: int) -> torch.Tensor:

@@ -18,10 +18,10 @@ from typing import List, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from slam_tpu.params import ORB_PATCH_RADIUS, StaticSettings
 from slam_tpu_torch.ops import detector as det
 from slam_tpu_torch.ops import orb
 from slam_tpu_torch.ops.pyramid import build_pyramid, pyramid_operators
+from slam_tpu_torch.params import ORB_PATCH_RADIUS, StaticSettings
 
 
 class FrontendSpec(NamedTuple):

@@ -15,7 +15,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from slam_tpu.ops.orb_pattern import ORB_PATTERN
+from slam_tpu_torch.ops.orb_pattern import ORB_PATTERN
 
 HALF_PATCH = 15          # fast_half_patch_size_
 PATCH_RADIUS = 19        # ORB_PATCH_RADIUS: descriptor sampling never leaves this

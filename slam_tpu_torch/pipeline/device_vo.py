@@ -23,7 +23,7 @@ from typing import Mapping, NamedTuple, Optional
 import numpy as np
 import torch
 
-from slam_tpu.params import Parameters, ParametersSlam, StaticSettings
+from slam_tpu_torch.geometry.camera import PinholeCamera
 from slam_tpu_torch.ops import ba, lie
 from slam_tpu_torch.ops.bow import make_codebook
 from slam_tpu_torch.ops.camera import pack_camera, project, unproject
@@ -33,6 +33,7 @@ from slam_tpu_torch.ops.hamming import (HAMMING_DIST_THR_LOW, MASK_DIST,
 from slam_tpu_torch.ops.hamming_argmin import hamming_argmin
 from slam_tpu_torch.ops.pyramid import level_sizes
 from slam_tpu_torch.ops.ransac import triangulate_two_view
+from slam_tpu_torch.params import Parameters, ParametersSlam, StaticSettings
 from slam_tpu_torch.precision import pin_full_f32
 
 take = ba.take
@@ -155,7 +156,6 @@ def _loop_codebook(num_words: int) -> np.ndarray:
 
 def _resolve_camera(cfg: DeviceVOConfig, camera):
     if camera is None:
-        from slam_tpu.geometry.camera import PinholeCamera
         camera = PinholeCamera(fx=0.8 * cfg.width, fy=0.8 * cfg.width,
                                cx=cfg.width / 2.0, cy=cfg.height / 2.0,
                                width=cfg.width, height=cfg.height)
@@ -491,7 +491,7 @@ def _window_ba(state: VOState, cfg: DeviceVOConfig, focal: float) -> VOState:
 
 
 def make_vo_step(cfg: DeviceVOConfig, camera=None,
-                 settings: Optional[StaticSettings] = None, device="cpu"):
+                 settings: Optional[StaticSettings] = None, device="cuda"):
     """Build the per-frame update ``step(state, image (S, H, W),
     odom_delta (S, 4, 4)) -> (state, VOStepOut)``. ``odom_delta`` is the
     odometry motion prior cam_t <- cam_{t-1}."""
@@ -696,7 +696,7 @@ def loop_candidates(out: VOStepOut, frame_offset: int = 0) -> np.ndarray:
 
 
 def init_state(cfg: DeviceVOConfig, num_slots: int, batch: int = 1,
-               device="cpu") -> VOState:
+               device="cuda") -> VOState:
     """Empty state for ``batch`` sequences, all at the identity pose."""
     M = cfg.lm_capacity
     if cfg.loop_every > 0:
@@ -739,7 +739,8 @@ def init_state(cfg: DeviceVOConfig, num_slots: int, batch: int = 1,
         sig_pose=eyes(R), sig_octave=z(R, P, dtype=i32))
 
 
-def state_from_numpy(fields: Mapping[str, np.ndarray], device="cpu") -> VOState:
+def state_from_numpy(fields: Mapping[str, np.ndarray],
+                     device="cuda") -> VOState:
     """Port state from the JAX package's batched VOState as NumPy arrays
     (a dict, or the ``.npz`` that ``BatchedDeviceVO.save_state`` writes in
     either package). uint32 descriptor fields become int32 bit patterns."""
@@ -769,7 +770,7 @@ class BatchedDeviceVO:
     ``device`` between calls."""
 
     def __init__(self, cfg: DeviceVOConfig, batch: int, camera=None,
-                 settings: Optional[StaticSettings] = None, device="cpu"):
+                 settings: Optional[StaticSettings] = None, device="cuda"):
         self.cfg = cfg
         self.batch = batch
         self.device = torch.device(device)

@@ -14,8 +14,8 @@ from typing import List
 
 import numpy as np
 
-from slam_tpu.geometry import se3
-from slam_tpu.geometry.camera import default_camera
+from slam_tpu_torch.geometry import se3
+from slam_tpu_torch.geometry.camera import default_camera
 
 __all__ = ["SyntheticWorld", "default_camera", "exact_odometry", "make_world",
            "render_frame", "visible_landmarks"]

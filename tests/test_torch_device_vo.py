@@ -14,11 +14,11 @@ import numpy as np
 import pytest
 import torch
 
-from slam_tpu.geometry.camera import default_camera
+from slam_tpu.geometry.camera import default_camera as jax_default_camera
 from slam_tpu.pipeline import device_vo as jvo
 from slam_tpu_torch.pipeline import device_vo as tvo
-from slam_tpu_torch.utils.synthetic import (exact_odometry, make_world,
-                                            render_frame)
+from slam_tpu_torch.utils.synthetic import (default_camera, exact_odometry,
+                                            make_world, render_frame)
 
 torch.set_num_threads(1)
 W, H, S, WARM, T = 320, 240, 2, 4, 8
@@ -34,12 +34,14 @@ def _center(T):
 @pytest.fixture(scope="module")
 def scene():
     """Rendered frames, exact odometry, the JAX state after WARM frames and
-    the JAX run of the next T frames from it."""
-    cam = default_camera(W, H)
+    the JAX run of the next T frames from it. Each package gets its own
+    camera object, built from the same numbers."""
+    cam = jax_default_camera(W, H)
+    tcam = default_camera(W, H)
     imgs, dels, p0 = [], [], []
     for s in range(S):
         world = make_world(n_frames=WARM + T, n_landmarks=500, seed=30 + s,
-                           trajectory="loop", lap_frames=32, camera=cam)
+                           trajectory="loop", lap_frames=32, camera=tcam)
         patches = np.random.default_rng(31 + s).integers(
             40, 255, (500, 11, 11)).astype(np.uint8)
         imgs.append(np.stack([render_frame(world, patches, i, W, H)
@@ -56,7 +58,7 @@ def scene():
             for a in range(WARM, WARM + T, 4)]
     out = {k: np.concatenate([np.asarray(getattr(o, k)) for o in outs], 1)
            for k in jvo.VOStepOut._fields}
-    return dict(cam=cam, imgs=imgs, dels=dels, p0=p0, jax_vo=vo,
+    return dict(cam=cam, tcam=tcam, imgs=imgs, dels=dels, p0=p0, jax_vo=vo,
                 state0=state0, jax_out=out,
                 jax_final=jax.device_get(vo.state))
 
@@ -66,8 +68,8 @@ def test_slice_matches_jax(scene):
     per frame n_matched, n_new and loop_frame equal, camera centres within
     1e-3 m, and the integer map state equal at the end."""
     vo = tvo.BatchedDeviceVO(tvo.DeviceVOConfig(**CFG), batch=S,
-                             camera=scene["cam"])
-    vo.state = tvo.state_from_numpy(scene["state0"]._asdict())
+                             camera=scene["tcam"], device="cpu")
+    vo.state = tvo.state_from_numpy(scene["state0"]._asdict(), device="cpu")
     outs = [vo.advance(scene["imgs"][:, a:a + 4], scene["dels"][:, a:a + 4])
             for a in range(WARM, WARM + T, 4)]
     got = {k: np.concatenate([getattr(o, k).numpy() for o in outs], 1)
@@ -114,7 +116,7 @@ def test_step_functions_match_jax(scene):
     cfg_t = tvo.DeviceVOConfig(**CFG)
     kind, params = jvo.camera_jax.pack_camera(scene["cam"])
     params_t = torch.from_numpy(params)
-    st_t = tvo.state_from_numpy(scene["state0"]._asdict())
+    st_t = tvo.state_from_numpy(scene["state0"]._asdict(), device="cpu")
     pts, desc, valid = _features(scene, WARM)
     pose_pred = np.einsum("sij,sjk->sik", scene["dels"][:, WARM],
                           scene["state0"].pose_cw).astype(np.float32)
@@ -210,7 +212,7 @@ def test_state_carry_over_round_trips(scene, tmp_path):
     path = str(tmp_path / "jax_state.npz")
     scene["jax_vo"].save_state(path)
     vo = tvo.BatchedDeviceVO(tvo.DeviceVOConfig(**CFG), batch=S,
-                             camera=scene["cam"])
+                             camera=scene["tcam"], device="cpu")
     vo.load_state(path)
     assert vo.state.lm_desc.dtype == torch.int32
     back = tvo.state_to_numpy(vo.state)
@@ -231,7 +233,7 @@ def test_state_carry_over_round_trips(scene, tmp_path):
     # capacity mismatch is rejected
     small = tvo.BatchedDeviceVO(tvo.DeviceVOConfig(**{**CFG,
                                                       "lm_capacity": 128}),
-                                batch=S, camera=scene["cam"])
+                                batch=S, camera=scene["tcam"], device="cpu")
     with pytest.raises(AssertionError):
         small.load_state(path)
 
@@ -250,7 +252,7 @@ def test_batched_device_vo_end_to_end():
                        for i in range(n)])
     deltas = exact_odometry(world, n)
     cfg = tvo.DeviceVOConfig(**{**CFG, "loop_min_gap": 4})
-    vo = tvo.BatchedDeviceVO(cfg, batch=2, camera=cam)
+    vo = tvo.BatchedDeviceVO(cfg, batch=2, camera=cam, device="cpu")
     p0 = np.stack([world.poses_cw[0]] * 2).astype(np.float32)
     vo.reset(p0)
     np.testing.assert_array_equal(vo.state.pose_cw.numpy(), p0)
@@ -274,4 +276,5 @@ def test_batched_device_vo_end_to_end():
     assert set(rows[:, 1].astype(int)) <= set(range(4, 8))
 
     with pytest.raises(AssertionError):
-        tvo.init_state(cfg._replace(loop_points=cfg.lm_capacity + 1), 10)
+        tvo.init_state(cfg._replace(loop_points=cfg.lm_capacity + 1), 10,
+                       device="cpu")

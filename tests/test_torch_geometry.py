@@ -8,10 +8,11 @@ import numpy as np
 import pytest
 import torch
 
-from slam_tpu.geometry.camera import KannalaBrandtCamera, PinholeCamera
+from slam_tpu.geometry import camera as jgeo
 from slam_tpu.ops import camera_jax as jcam
 from slam_tpu.ops import lie as jlie
 from slam_tpu.ops.ransac import triangulate_two_view_jax
+from slam_tpu_torch.geometry import camera as tgeo
 from slam_tpu_torch.ops import camera as tcam
 from slam_tpu_torch.ops import lie as tlie
 from slam_tpu_torch.ops.ransac import triangulate_two_view
@@ -76,11 +77,14 @@ def test_batched_jacfwd_matches_jax_jacfwd():
 
 
 def _cameras():
-    return [PinholeCamera(fx=420.0, fy=410.0, cx=322.0, cy=241.0, width=640,
-                          height=480, k1=-0.05, k2=0.01, p1=1e-3, p2=-5e-4),
-            KannalaBrandtCamera(fx=300.0, fy=300.0, cx=320.0, cy=240.0,
-                                width=640, height=480, k1=0.01, k2=-0.005,
-                                k3=1e-3, k4=-1e-4)]
+    """(class name, fields): each package builds its own camera from them."""
+    return [("PinholeCamera", dict(fx=420.0, fy=410.0, cx=322.0, cy=241.0,
+                                   width=640, height=480, k1=-0.05, k2=0.01,
+                                   p1=1e-3, p2=-5e-4)),
+            ("KannalaBrandtCamera", dict(fx=300.0, fy=300.0, cx=320.0,
+                                         cy=240.0, width=640, height=480,
+                                         k1=0.01, k2=-0.005, k3=1e-3,
+                                         k4=-1e-4))]
 
 
 @pytest.mark.parametrize("cam", _cameras(), ids=["pinhole", "kannala_brandt"])
@@ -88,8 +92,9 @@ def test_camera_matches_jax(cam):
     rng = np.random.default_rng(2)
     pts = rng.uniform([-3, -3, -1], [3, 3, 8], (256, 3)).astype(np.float32)
     pix = rng.uniform([0, 0], [640, 480], (256, 2)).astype(np.float32)
-    kind, params = jcam.pack_camera(cam)
-    kind_t, params_t = tcam.pack_camera(cam)
+    cls, fields = cam
+    kind, params = jcam.pack_camera(getattr(jgeo, cls)(**fields))
+    kind_t, params_t = tcam.pack_camera(getattr(tgeo, cls)(**fields))
     assert kind == kind_t
     np.testing.assert_array_equal(params, params_t)
     j_uv, j_ok = (np.asarray(a) for a in jcam.project(kind, jnp.asarray(params),

@@ -144,14 +144,24 @@ def test_hamming_argmin_cpu_path_does_not_count_launches():
 
 @pytest.mark.cuda
 def test_hamming_argmin_kernel_bit_equal_on_card():
-    """The CUDA kernel against its plain version on the card, at ragged N
-    and V, with duplicate codebook rows."""
+    """The CUDA kernel against its plain version on the card: the main
+    path's and the vocabulary's shapes, ragged N and V, and duplicate
+    codebook rows on both sides of every 64-row boundary (so of every
+    cluster rank's first row, for any split into whole tiles of 64 rows),
+    where the first index must win. One launch per call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+
     rng = np.random.default_rng(5)
-    for n, v in [(1, 1), (300, 512), (2432, 512), (1000, 1000), (129, 65536)]:
+    for n, v in [(1, 1), (300, 512), (2432, 512), (1, 512), (2433, 512),
+                 (300, 1), (2432, 513), (1000, 1000), (129, 65535),
+                 (4096, 65536)]:
         cb = _codebook_with_ties(rng, v) if v >= 32 else _desc(rng, v)
+        cb[64::64] = cb[63:-1:64]                # row 64k repeats row 64k - 1
+        tied = list(range(63, v - 1, 64))
         desc = _near_copies(rng, cb, n, flips=40)
+        desc[:len(tied)] = cb[tied][:n]
+        first = [np.flatnonzero((cb == cb[j]).all(1))[0] for j in tied]
         dc, cc = _t(desc).cuda(), _t(cb).cuda()
         before = hamming_argmin.launches
         d, i = hamming_argmin(dc, cc)
@@ -159,5 +169,8 @@ def test_hamming_argmin_kernel_bit_equal_on_card():
         pd, pi = hamming_argmin_plain(dc, cc)
         torch.cuda.synchronize()
         assert torch.equal(d, pd) and torch.equal(i, pi), (n, v)
+        assert (i[:len(tied)].cpu().numpy() == first[:n]).all(), (n, v)
+    d, i = hamming_argmin(dc[:0], cc)
+    assert d.shape == i.shape == (0,)
     with pytest.raises(ValueError):
         hamming_argmin(dc, _t(_desc(rng, 65537)).cuda())
