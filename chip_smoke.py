@@ -7,10 +7,12 @@ tensor-core rate probe ``tools/mma_peak.cu`` (one nvcc each, in parallel),
 measures the card's 1-bit mma rate, checks the kernel bit for bit against
 its plain PyTorch version on the card (at the main path's shape, the
 vocabulary's and ragged edge shapes, one launch per call) and times it
-beside its bound, drives the port's main path
-(``slam_tpu_torch.pipeline.device_vo.BatchedDeviceVO``) at the
-device-SLAM bench's settings, checks the result against the synthetic
-ground truth, and compares the front-end on CPU and card. Any failed check
+beside its bound, drives the port's main path at the device-SLAM bench's
+settings twice: ``slam_tpu_torch.pipeline.device_vo.BatchedDeviceVO`` over
+64 frames of exact odometry, then ``slam_tpu_torch.DeviceSlam`` (loop
+closure included) over 128 frames of biased odometry beside a control
+session that applies no closure; it checks both against the synthetic
+ground truth and compares the front-end on CPU and card. Any failed check
 raises, so the exit code is non-zero. Without a CUDA card it exits non-zero
 before printing any result.
 
@@ -37,6 +39,12 @@ CFG = dict(width=WIDTH, height=HEIGHT, lm_capacity=512, max_keypoints=600,
            # candidate at most 0.957 and the revisits at 1.0
            loop_min_score=0.97)
 CENTRE_ERR_MAX = 0.05       # metres, the JAX package's tracking-test bound
+# DeviceSlam phase: the device-SLAM bench's settings (bench.py:366-371,
+# :377-378, :402-404): sessions of 128 frames over laps of 64, a vertical
+# odometry bias so that closures have drift to correct, the device's score
+# gate at 0.9
+SLAM_FRAMES, SLAM_LAP, SLAM_BIAS_M = 128, 64, 2e-3
+SLAM_CFG = dict(CFG, loop_min_score=0.9)
 
 
 def cuda_time_ms(fn, reps=20, warmup=3):
@@ -345,6 +353,184 @@ def phase_main_path(cam, worlds, images, deltas):
     return dict(wall=wall, fps=fps, launches=launches)
 
 
+def make_slam_inputs(cam):
+    """The device-SLAM bench's worlds (bench.py:380-402): square loops with
+    a lap of SLAM_LAP frames, seeds 30-33, and a constant vertical odometry
+    bias of SLAM_BIAS_M m per frame."""
+    from slam_tpu_torch.utils.synthetic import (exact_odometry, make_world,
+                                                render_frame)
+
+    worlds = [make_world(n_frames=SLAM_FRAMES, n_landmarks=500, seed=30 + s,
+                         trajectory="loop", lap_frames=SLAM_LAP, camera=cam)
+              for s in range(S)]
+    rng = np.random.default_rng(31)
+    patch_sets = [rng.integers(40, 255, (500, 11, 11)).astype(np.uint8)
+                  for _ in range(S)]
+    images = np.stack([np.stack([render_frame(w, p, i, WIDTH, HEIGHT)
+                                 for i in range(SLAM_FRAMES)])
+                       for w, p in zip(worlds, patch_sets)])
+    deltas = np.stack([exact_odometry(w, SLAM_FRAMES) for w in worlds])
+    bias = np.eye(4, dtype=np.float32)
+    bias[1, 3] = SLAM_BIAS_M
+    deltas[:, 1:] = np.einsum("ij,stjk->stik", bias, deltas[:, 1:])
+    return worlds, images, deltas
+
+
+def phase_device_slam(cam, worlds, images, deltas, smi):
+    """``DeviceSlam`` sessions at the device-SLAM bench's settings: one
+    warm-up, one timed, one control with closures not applied. Checks the
+    closures and the trajectory against ground truth and the control, and
+    times the host consumer and the rebase."""
+    from slam_tpu_torch import DeviceSlam, DeviceSlamParams
+    from slam_tpu_torch.ops.hamming_argmin import hamming_argmin
+    from slam_tpu_torch.pipeline.device_vo import (BatchedDeviceVO,
+                                                   DeviceVOConfig,
+                                                   _rebase_states)
+
+    cfg = DeviceVOConfig(**SLAM_CFG)
+    params = DeviceSlamParams(frame_dt=0.1, min_closure_gap_s=2.0,
+                              calib_frames=20)
+    p0 = np.stack([w.poses_cw[0] for w in worlds]).astype(np.float32)
+
+    def session(apply_closures):
+        slam = DeviceSlam(cfg, batch=S, camera=cam,
+                          params=params._replace(
+                              apply_closures=apply_closures))
+        slam.vo.reset(p0)
+        times = {"consume": [], "try_close": []}
+        for name in times:                   # host clock around each call
+            def timed(*args, _fn=getattr(slam, "_" + name), _log=times[name]):
+                t0 = time.perf_counter()
+                out = _fn(*args)
+                _log.append(time.perf_counter() - t0)
+                return out
+            setattr(slam, "_" + name, timed)
+        torch.cuda.synchronize()
+        hamming_argmin.launches = 0
+        t0 = time.perf_counter()
+        for c in range(SLAM_FRAMES // CHUNK):
+            sl = slice(c * CHUNK, (c + 1) * CHUNK)
+            slam.advance(images[:, sl], deltas[:, sl])
+        slam.finish()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return slam, wall, hamming_argmin.launches, times
+
+    session(True)                             # warm-up: CUDA init, caches
+    slam, wall, launches, times = session(True)
+    control, control_wall, control_launches, _ = session(False)
+    # the same frames through the VO backend alone, for the closure loop's
+    # share of the wall
+    vo = BatchedDeviceVO(cfg, batch=S, camera=cam)
+    vo.reset(p0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for c in range(SLAM_FRAMES // CHUNK):
+        sl = slice(c * CHUNK, (c + 1) * CHUNK)
+        vo.advance(images[:, sl], deltas[:, sl])
+    torch.cuda.synchronize()
+    vo_wall = time.perf_counter() - t0
+
+    # K1 ran once per frame for all S sequences, in both sessions
+    assert launches == control_launches == SLAM_FRAMES, (launches,
+                                                         control_launches)
+    accepted = [e for e in slam.closures if e.accepted]
+    reasons = {}
+    for e in slam.closures:
+        reasons[e.reason] = reasons.get(e.reason, 0) + 1
+    print(f"device_slam closures: {len(accepted)} accepted, by reason "
+          f"{reasons}: "
+          + ", ".join(f"s{e.seq} ({e.query_frame}, {e.cand_frame}) "
+                      f"{e.n_matches}/{e.n_inliers}" for e in accepted)
+          + f"; on {smi}")
+    for s in range(S):
+        assert any(e.seq == s for e in accepted), (s, reasons)
+    for e in accepted:
+        gap = e.query_frame - e.cand_frame
+        laps = round(gap / SLAM_LAP)
+        assert laps >= 1 and abs(gap - laps * SLAM_LAP) <= cfg.loop_every, e
+    lags = slam.closure_lags
+    assert lags and all(0 < lag <= 3 * CHUNK for lag in lags), lags
+
+    # after each sequence's first accepted query the corrected trajectory
+    # tracks ground truth better than the control's
+    errs = []
+    for s in range(S):
+        q = min(e.query_frame for e in accepted if e.seq == s)
+        w = worlds[s]
+        truth = np.stack([-w.poses_cw[i][:3, :3].T @ w.poses_cw[i][:3, 3]
+                          for i in range(q, SLAM_FRAMES)])
+
+        def err(run):
+            traj = run.trajectory(s)[q:]
+            centres = -np.einsum("tji,tj->ti", traj[:, :3, :3],
+                                 traj[:, :3, 3])
+            return float(np.linalg.norm(centres - truth, axis=-1).mean())
+        errs.append((err(slam), err(control)))
+    print("device_slam camera-centre error after the first closure, "
+          "closed vs control (m): "
+          + ", ".join(f"s{s} {a:.6f} vs {b:.6f}" for s, (a, b)
+                      in enumerate(errs)) + f"; on {smi}")
+    assert all(a < b for a, b in errs), errs
+
+    n_chunks = SLAM_FRAMES // CHUNK
+    consume_ms = 1e3 * np.array(times["consume"])
+    try_ms = 1e3 * np.array(times["try_close"])
+    fps = S * SLAM_FRAMES / wall
+    print(f"device_slam: {S} sequences x {SLAM_FRAMES} frames at "
+          f"{WIDTH}x{HEIGHT} in {wall:.3f} s = {fps:.2f} keyframes/s "
+          f"(control without rebases {S * SLAM_FRAMES / control_wall:.2f}, "
+          f"BatchedDeviceVO alone {S * SLAM_FRAMES / vo_wall:.2f}); "
+          f"on {smi}")
+    print(f"device_slam host consumer: {consume_ms.sum() / n_chunks:.3f} ms "
+          f"per chunk over {len(consume_ms)} calls (max "
+          f"{consume_ms.max():.3f} ms), {consume_ms.sum() / 1e3 / wall:.2%} "
+          f"of the session wall; {len(try_ms)} closure attempts at "
+          f"{try_ms.mean():.3f} ms each; mean closure lag "
+          f"{np.mean(lags):.2f} frames ({len(lags)} closures); on {smi}")
+
+    # the rebase dispatch on the session's final state, every sequence
+    # closing with its last accepted correction, merge on
+    dev = slam.vo.device
+    Ts = np.tile(np.eye(4, dtype=np.float32), (S, 1, 1))
+    cands = np.zeros(S, np.int32)
+    for e in accepted:
+        Ts[e.seq], cands[e.seq] = e.T, e.cand_frame
+    args = (slam.vo.state, torch.from_numpy(Ts).to(dev),
+            torch.ones(S, dtype=torch.bool, device=dev),
+            torch.from_numpy(cands).to(dev),
+            torch.from_numpy((cands // cfg.loop_every) % cfg.loop_slots
+                             ).to(dev))
+    kw = dict(merge_radius=params.merge_radius_m, merge=True)
+    out = _rebase_states(*args, **kw)
+    # the same dispatch on the CPU: integer fields equal, floats within 1e-4
+    ref = _rebase_states(type(args[0])(*(t.cpu() for t in args[0])),
+                         *(t.cpu() for t in args[1:]), **kw)
+    float_err = 0.0
+    for name, a, b in zip(out._fields, out, ref):
+        if a.is_floating_point():
+            assert bool(torch.isfinite(a).all()), name
+            float_err = max(float_err, float((a.cpu() - b).abs().max()))
+        else:
+            assert torch.equal(a.cpu(), b), name
+    assert float_err < 1e-4, float_err
+    merged = int((slam.vo.state.lm_valid & ~out.lm_valid).sum())
+    rebase_ms = cuda_time_ms(lambda: _rebase_states(*args, **kw))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        _rebase_states(*args, **kw)
+    enqueue_ms = (time.perf_counter() - t0) / 20 * 1e3
+    torch.cuda.synchronize()
+    print(f"device_slam rebase dispatch (S={S}, merge on): {rebase_ms:.3f} "
+          f"ms between CUDA events, {enqueue_ms:.3f} ms of host enqueue; "
+          f"{merged} duplicates merged, equal to the CPU's (floats within "
+          f"{float_err:.2e}); on {smi}")
+    return dict(wall=wall, fps=fps, launches=launches, accepted=len(accepted),
+                consume_ms_per_chunk=consume_ms.sum() / n_chunks,
+                rebase_ms=rebase_ms)
+
+
 def phase_frontend(images):
     """Frame 0 of every sequence through the front-end on CPU (the plain
     path) and on the card."""
@@ -388,6 +574,7 @@ def main():
     print(f"main path: {S} sequences x {FRAMES} frames at {WIDTH}x{HEIGHT} in "
           f"{main_path['wall']:.3f} s = {main_path['fps']:.2f} keyframes/s "
           f"on {smi}")
+    slam = phase_device_slam(cam, *make_slam_inputs(cam), smi)
     phase_frontend(images)
     k, voc = kernel["main path"], kernel["vocabulary"]
     print(json.dumps({"kernels": [{
@@ -399,7 +586,8 @@ def main():
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": None,
         "vocab_ms": voc["ms"], "vocab_plain_ms": voc["plain_ms"],
-        "vocab_bound_ms": voc["bound_ms"]}]}))
+        "vocab_bound_ms": voc["bound_ms"],
+        "device_slam_launches": slam["launches"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

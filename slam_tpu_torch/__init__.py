@@ -1,4 +1,5 @@
-"""PyTorch + CUDA port of slam_tpu's device-resident VO serving path.
+"""PyTorch + CUDA port of slam_tpu's device-resident serving path: the
+batched VO backend and ``DeviceSlam``, its host loop-closure consumer.
 
 The JAX package ``slam_tpu`` stays the reference; this package mirrors its
 layout (``ops/``, ``pipeline/``) with torch tensors and an explicit leading
@@ -11,3 +12,6 @@ its own copies of what it needs from the JAX package's JAX-free modules
 the trained vocabulary ``data/vocab_65536.npz``). Its entry points run on
 the CUDA card unless the caller passes ``device="cpu"``.
 """
+from slam_tpu_torch.pipeline.device_slam import DeviceSlam, DeviceSlamParams
+
+__all__ = ["DeviceSlam", "DeviceSlamParams"]

@@ -10,9 +10,15 @@ the bits unpacked to +/-1,
 so a whole distance matrix is one float32 matmul. A sum of 256 terms of +/-1
 is exact in float32, and stays exact under TF32 too; an int8 product would
 wrap instead.
+
+``hamming_matrix_host`` is the NumPy popcount-table matrix that the host
+closure stack (``pipeline/device_slam.py``) runs on uint32 descriptors.
 """
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 HAMMING_DIST_THR_LOW = 50    # reference: match_base.h:13
@@ -53,3 +59,22 @@ def mutual_nn(dist: torch.Tensor, thr: int, ratio: float = 1.0):
         ok = ok & (d_best.to(torch.float32)
                    < ratio * d_second.to(torch.float32))
     return nn_ab, ok
+
+
+@functools.lru_cache(maxsize=1)
+def _popcount_table() -> np.ndarray:
+    return np.unpackbits(np.arange(256, dtype=np.uint8)[:, None],
+                         axis=1).sum(1).astype(np.int32)
+
+
+def hamming_matrix_host(desc1: np.ndarray, desc2: np.ndarray) -> np.ndarray:
+    """Host NumPy (N, 8) x (M, 8) uint32 descriptors -> (N, M) int32."""
+    a = np.ascontiguousarray(desc1, np.uint32).view(np.uint8).reshape(
+        len(desc1), 32)
+    b = np.ascontiguousarray(desc2, np.uint32).view(np.uint8).reshape(
+        len(desc2), 32)
+    t = _popcount_table()
+    out = np.zeros((len(a), len(b)), dtype=np.int32)
+    for k in range(32):
+        out += t[(a[:, None, k] ^ b[None, :, k])]
+    return out

@@ -1,8 +1,15 @@
-"""Two-view triangulation (port of ``triangulate_two_view_jax`` from
-slam_tpu/ops/ransac.py; the RANSAC solvers are not on the VO path)."""
+"""Two-view triangulation and the host Sim3 RANSAC (port of
+``triangulate_two_view_jax`` and ``sim3_ransac_host`` from
+slam_tpu/ops/ransac.py; the device RANSAC banks are not on the serving
+path)."""
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import numpy as np
 import torch
+
+CHI_SQ_2D = 9.21034  # p=0.01, loop_ransac.cpp:28
 
 
 def triangulate_two_view(R_21, t_21, b1, b2):
@@ -31,3 +38,143 @@ def triangulate_two_view(R_21, t_21, b1, b2):
     parallax = torch.sum(d1 * d2, dim=-1)
     ok = (z1 > 1e-6) & (z2 > 1e-6) & (parallax < 1.0 - 1e-7)
     return pts, ok
+
+
+class Sim3RansacResult(NamedTuple):
+    ok: bool
+    rot_12: np.ndarray
+    trans_12: np.ndarray
+    scale_12: float
+    inliers: np.ndarray          # (N,) bool over match list
+    num_inliers: int
+
+
+def _horn_sim3_np(s1: np.ndarray, s2: np.ndarray):
+    """Batched Horn absolute orientation, NumPy (K hypotheses at once).
+
+    ``s1, s2``: (K, 3, 3) with COLUMNS as corresponding points (reference:
+    loop_ransac.cpp:112-196), vectorized over the hypothesis axis with one
+    batched symmetric 4x4 eigendecomposition."""
+    c1 = s1.mean(axis=2)
+    c2 = s2.mean(axis=2)
+    a1 = s1 - c1[:, :, None]
+    a2 = s2 - c2[:, :, None]
+    M = a1 @ a2.transpose(0, 2, 1)                        # (K, 3, 3)
+    sxx, sxy, sxz = M[:, 0, 0], M[:, 0, 1], M[:, 0, 2]
+    syx, syy, syz = M[:, 1, 0], M[:, 1, 1], M[:, 1, 2]
+    szx, szy, szz = M[:, 2, 0], M[:, 2, 1], M[:, 2, 2]
+    K = len(s1)
+    N = np.empty((K, 4, 4), s1.dtype)
+    N[:, 0, 0] = sxx + syy + szz
+    N[:, 0, 1] = N[:, 1, 0] = syz - szy
+    N[:, 0, 2] = N[:, 2, 0] = szx - sxz
+    N[:, 0, 3] = N[:, 3, 0] = sxy - syx
+    N[:, 1, 1] = sxx - syy - szz
+    N[:, 1, 2] = N[:, 2, 1] = sxy + syx
+    N[:, 1, 3] = N[:, 3, 1] = szx + sxz
+    N[:, 2, 2] = -sxx + syy - szz
+    N[:, 2, 3] = N[:, 3, 2] = syz + szy
+    N[:, 3, 3] = -sxx - syy + szz
+    _, vecs = np.linalg.eigh(N)
+    q = vecs[:, :, -1]                                    # (K, 4) (w, x, y, z)
+    qw, qx, qy, qz = q[:, 0], q[:, 1], q[:, 2], q[:, 3]
+    R = np.empty((K, 3, 3), s1.dtype)
+    R[:, 0, 0] = 1 - 2 * (qy * qy + qz * qz)
+    R[:, 0, 1] = 2 * (qx * qy - qz * qw)
+    R[:, 0, 2] = 2 * (qx * qz + qy * qw)
+    R[:, 1, 0] = 2 * (qx * qy + qz * qw)
+    R[:, 1, 1] = 1 - 2 * (qx * qx + qz * qz)
+    R[:, 1, 2] = 2 * (qy * qz - qx * qw)
+    R[:, 2, 0] = 2 * (qx * qz - qy * qw)
+    R[:, 2, 1] = 2 * (qy * qz + qx * qw)
+    R[:, 2, 2] = 1 - 2 * (qx * qx + qy * qy)
+    a1_in_2 = R @ a1
+    s = (np.sum(a2 * a1_in_2, axis=(1, 2))
+         / np.maximum(np.sum(a1 * a1, axis=(1, 2)), 1e-12))
+    t = c2 - s[:, None] * (R @ c1[:, :, None])[:, :, 0]
+    return R, t, s
+
+
+def _horn_rot_z_np(s1: np.ndarray, s2: np.ndarray):
+    """Batched planar (yaw-only) Horn, NumPy (reference:
+    loop_ransac.cpp:277-312)."""
+    c1 = s1.mean(axis=2)
+    c2 = s2.mean(axis=2)
+    a1 = s1 - c1[:, :, None]
+    a2 = s2 - c2[:, :, None]
+    C = np.sum(a1[:, :2] * a2[:, :2], axis=(1, 2))
+    S = np.sum(a1[:, 0] * a2[:, 1] - a1[:, 1] * a2[:, 0], axis=1)
+    norm = np.maximum(np.sqrt(C * C + S * S), 1e-12)
+    ct, st = C / norm, S / norm
+    K = len(s1)
+    R = np.zeros((K, 3, 3), s1.dtype)
+    R[:, 0, 0] = ct
+    R[:, 0, 1] = -st
+    R[:, 1, 0] = st
+    R[:, 1, 1] = ct
+    R[:, 2, 2] = 1.0
+    s = (np.sum(a2 * (R @ a1), axis=(1, 2))
+         / np.maximum(np.sum(a1 * a1, axis=(1, 2)), 1e-12))
+    t = c2 - s[:, None] * (R @ c1[:, :, None])[:, :, 0]
+    return R, t, s
+
+
+def sim3_ransac_host(camera1, camera2, pts1_cam, pts2_cam,
+                     sigma_sq1, sigma_sq2, iterations: int,
+                     dof: str = "SIM3", fix_scale: bool = False,
+                     min_inliers: int = 20,
+                     seed: int = 94235682) -> Sim3RansacResult:
+    """Host NumPy Sim3 RANSAC (reference: loop_ransac.cpp:47-110): K Horn
+    hypotheses from random distinct triples (NumPy's generator, seeded),
+    a symmetric chi2-gated reprojection inlier count, argmax winner. The
+    closure consumer's problem is ~200 hypotheses x ~200 points, too small
+    to be worth a device dispatch."""
+    n = len(pts1_cam)
+    if n < 3 or n < min_inliers:
+        return Sim3RansacResult(False, np.eye(3), np.zeros(3), 1.0,
+                                np.zeros(n, bool), 0)
+    pts1 = np.asarray(pts1_cam, np.float64).reshape(n, 3)
+    pts2 = np.asarray(pts2_cam, np.float64).reshape(n, 3)
+    chi1 = CHI_SQ_2D * np.asarray(sigma_sq1, np.float64)
+    chi2 = CHI_SQ_2D * np.asarray(sigma_sq2, np.float64)
+    repro1, vis1 = camera1.ray_to_pixel(pts1)
+    vis1 = vis1 & camera1.is_valid_pixel(repro1)
+    repro2, vis2 = camera2.ray_to_pixel(pts2)
+    vis2 = vis2 & camera2.is_valid_pixel(repro2)
+    repro1 = np.nan_to_num(repro1)
+    repro2 = np.nan_to_num(repro2)
+
+    rng = np.random.default_rng(seed)
+    keys = rng.random((int(iterations), n))
+    idx = np.argpartition(keys, 2, axis=1)[:, :3]         # 3 distinct indices
+    s1 = pts1[idx].transpose(0, 2, 1)                     # (K, 3, 3) columns
+    s2 = pts2[idx].transpose(0, 2, 1)
+
+    solver = _horn_rot_z_np if dof == "ZROT" else _horn_sim3_np
+    R21, t21, s21 = solver(s1, s2)
+    if fix_scale:
+        s21 = np.ones_like(s21)
+    s12 = 1.0 / np.where(np.abs(s21) > 1e-12, s21, 1e-12)
+    R12 = R21.transpose(0, 2, 1)
+    t12 = -s12[:, None] * (R12 @ t21[:, :, None])[:, :, 0]
+
+    K = len(R21)
+    # batched BLAS matmuls, not einsum: p @ (sR)^T per hypothesis
+    p1_in_2 = (pts1[None] @ (R21 * s21[:, None, None]).transpose(0, 2, 1)
+               + t21[:, None, :])                          # (K, N, 3)
+    p2_in_1 = (pts2[None] @ (R12 * s12[:, None, None]).transpose(0, 2, 1)
+               + t12[:, None, :])
+    proj1_in_2, v12 = camera2.ray_to_pixel(p1_in_2.reshape(-1, 3))
+    proj2_in_1, v21 = camera1.ray_to_pixel(p2_in_1.reshape(-1, 3))
+    err2 = np.sum((np.nan_to_num(proj1_in_2).reshape(K, n, 2)
+                   - repro2[None]) ** 2, axis=-1)
+    err1 = np.sum((np.nan_to_num(proj2_in_1).reshape(K, n, 2)
+                   - repro1[None]) ** 2, axis=-1)
+    ok = (vis1[None] & vis2[None]
+          & v12.reshape(K, n) & v21.reshape(K, n)
+          & (err2 < chi2[None]) & (err1 < chi1[None]))
+    counts = ok.sum(axis=1)
+    best = int(np.argmax(counts))
+    num = int(counts[best])
+    return Sim3RansacResult(num >= min_inliers, R12[best], t12[best],
+                            float(s12[best]), ok[best], num)

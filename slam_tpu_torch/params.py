@@ -1,7 +1,6 @@
 """Runtime parameters and derived static settings (the port's copy of
 slam_tpu/params.py, same names and layout, without what the port does not
-use: the per-level sigma^2 and ``StaticSettings.replace``; the port imports
-nothing of slam_tpu).
+use: ``StaticSettings.replace``; the port imports nothing of slam_tpu).
 
 Equivalent of the reference's externally-defined
 ``odometry::ParametersSlam`` knob struct (the ~60 fields enumerated in
@@ -143,6 +142,16 @@ def calc_scale_factors(num_levels: int, scale_factor: float) -> np.ndarray:
     return s
 
 
+def calc_level_sigma_sq(num_levels: int, scale_factor: float) -> np.ndarray:
+    """Per-level sigma^2 (reference: static_settings.cpp:16-24)."""
+    out = np.ones(num_levels, dtype=np.float32)
+    acc = 1.0
+    for level in range(1, num_levels):
+        acc = scale_factor * acc
+        out[level] = acc * acc
+    return out
+
+
 ORB_PATCH_RADIUS = 19        # reference: static_settings.hpp:14
 
 
@@ -158,6 +167,7 @@ class StaticSettings:
         self.parameters = parameters
         p = parameters.slam
         self.scaleFactors = calc_scale_factors(p.orbScaleLevels, p.orbScaleFactor)
+        self.levelSigmaSq = calc_level_sigma_sq(p.orbScaleLevels, p.orbScaleFactor)
 
     def maxNumberOfKeypointsPerLevel(self) -> List[int]:
         """Geometric-series keypoint budget (reference: static_settings.cpp:39-60)."""

@@ -681,6 +681,169 @@ def make_vo_step(cfg: DeviceVOConfig, camera=None,
     return step, spec
 
 
+def _rebase_states(state: VOState, T: torch.Tensor, apply: torch.Tensor,
+                   cand_frame: torch.Tensor,
+                   cand_slot: Optional[torch.Tensor] = None,
+                   slot_T: Optional[torch.Tensor] = None,
+                   slot_frame: Optional[torch.Tensor] = None,
+                   merge_radius: float = 0.0,
+                   merge: bool = False) -> VOState:
+    """Apply per-sequence loop-closure corrections to the batched state: the
+    device path's ``correctLoop`` (reference: loop_closer.cpp:405-591), as
+    one run of batched ops with no host sync. Out of place: returns a new
+    ``VOState`` and leaves ``state`` (and every tensor a caller holds from
+    earlier chunks) as it was.
+
+    ``T`` (S, 4, 4) is the SE3 world correction, right-multiplied onto the
+    poses; landmarks created after ``cand_frame`` (S,) move by ``T^-1`` so
+    their camera-frame coordinates are kept, older ones stay put. Ring slot
+    r of sequence s uses ``slot_T[s, r]`` when its stored frame equals
+    ``slot_frame[s, r]`` (the host's interpolated smear), else the rigid
+    predicate ``sig_frame > cand_frame -> T``. ``merge`` (a Python bool)
+    adds the duplicate-landmark merge of :func:`_merge_duplicates` within
+    ``merge_radius`` metres, against ring slot ``cand_slot`` (S,).
+    ``apply`` (S,) bool: a sequence without an accepted closure comes out
+    bit-identical."""
+    pin_full_f32()
+    S, R_sig = state.sig_pose.shape[:2]
+    dev = T.device
+    if cand_slot is None:
+        cand_slot = torch.zeros(S, dtype=torch.int64, device=dev)
+    if slot_T is None:
+        slot_T = torch.eye(4, dtype=torch.float32, device=dev).expand(
+            S, R_sig, 4, 4)
+        slot_frame = torch.full((S, R_sig), -2, dtype=torch.int32,
+                                device=dev)
+    on = apply.to(torch.bool)
+    cf = cand_frame.to(torch.int32)[:, None]
+    Tinv = lie.se3_inverse(T)
+    Rinv_t = Tinv[:, :3, :3].transpose(-1, -2)
+    tinv = Tinv[:, None, :3, 3]
+    corrected = state.lm_valid & (state.lm_created > cf)
+    on3 = on[:, None, None]
+
+    def point(p, move):
+        return torch.where((on[:, None] & move)[..., None],
+                           p @ Rinv_t + tinv, p)
+
+    eye = torch.eye(4, dtype=T.dtype, device=dev)
+    rigid = torch.where((state.sig_frame > cf)[..., None, None],
+                        T[:, None], eye)
+    Tr = torch.where((state.sig_frame == slot_frame)[..., None, None],
+                     slot_T, rigid)
+    st = state._replace(
+        pose_cw=torch.where(on3, state.pose_cw @ T, state.pose_cw),
+        prev_pose_cw=torch.where(on3, state.prev_pose_cw @ T,
+                                 state.prev_pose_cw),
+        win_pose_cw=torch.where(on3[..., None], state.win_pose_cw @ T[:, None],
+                                state.win_pose_cw),
+        lm_pos=point(state.lm_pos, corrected),
+        lm_anchor_origin=point(state.lm_anchor_origin, corrected),
+        lm_anchor_ray=torch.where((on[:, None] & corrected)[..., None],
+                                  state.lm_anchor_ray @ Rinv_t,
+                                  state.lm_anchor_ray),
+        sig_pose=torch.where(on3[..., None], state.sig_pose @ Tr,
+                             state.sig_pose))
+    if not merge:
+        return st
+    return _merge_duplicates(st, on, cf, cand_slot.to(torch.int64),
+                             merge_radius)
+
+
+def _scatter_rows(base: torch.Tensor, tgt: torch.Tensor, src: torch.Tensor,
+                  reduce: str) -> torch.Tensor:
+    """``base.at[tgt].add/max(src, mode="drop")`` per sequence: base (S, M,
+    ...), tgt (S, M) in [0, M], src like base; row M is a scratch row that
+    is dropped."""
+    S, M = base.shape[:2]
+    ext = torch.cat([base, base[:, :1]], dim=1)
+    idx = tgt.reshape((S, M) + (1,) * (base.dim() - 2)).expand(src.shape)
+    if reduce == "sum":
+        return ext.scatter_add(1, idx, src)[:, :M]
+    return ext.scatter_reduce(1, idx, src, reduce="amax",
+                              include_self=True)[:, :M]
+
+
+def _merge_duplicates(st: VOState, on, cf, cslot, radius: float) -> VOState:
+    """Post-closure duplicate-landmark hygiene (searchAndDeduplicate and the
+    map-point merge, loop_closer.cpp:531-591), batched over S. ``on`` (S,),
+    ``cf`` (S, 1), ``cslot`` (S,).
+
+    Stage 1: a corrected-region landmark that is the Hamming mutual-NN of a
+    surviving old-region one within ``radius`` is freed, and its observation
+    count, last-seen frame and window observations move into the older
+    slot. Stage 2: the remaining corrected-region landmarks snap onto the
+    candidate snapshot's points they match. The M x M and M x P distances
+    are plain torch."""
+    S, M = st.lm_pos.shape[:2]
+    b = torch.arange(S, device=st.lm_pos.device)
+    # the reference squares the radius in float32
+    r2 = float(np.float32(radius) * np.float32(radius))
+    new_mask = st.lm_valid & (st.lm_created > cf)
+    old_mask = st.lm_valid & (st.lm_created <= cf) & (st.lm_created >= 0)
+
+    # stage 1: merge into the older landmark, keep its position
+    dist = hamming_matrix(st.lm_desc, st.lm_desc)             # (S, M, M)
+    d2 = torch.sum((st.lm_pos[:, :, None, :] - st.lm_pos[:, None, :, :]) ** 2,
+                   dim=-1)
+    gate = new_mask[:, :, None] & old_mask[:, None, :] & (d2 <= r2)
+    dist = torch.where(gate, dist, torch.full_like(dist, MASK_DIST))
+    nn, ok = mutual_nn(dist, HAMMING_DIST_THR_LOW)
+    ok = ok & on[:, None]
+    tgt = torch.where(ok, nn, torch.full_like(nn, M))
+    lm_valid = st.lm_valid & ~ok
+    lm_n_obs = _scatter_rows(st.lm_n_obs, tgt,
+                             torch.where(ok, st.lm_n_obs, 0), "sum")
+    lm_last_seen = _scatter_rows(st.lm_last_seen, tgt,
+                                 torch.where(ok, st.lm_last_seen, -1), "amax")
+    # window observations of the freed duplicate go to the kept slot (the
+    # columns where it has none); the boolean max runs on uint8
+    moved = st.wobs_valid & ok[..., None]
+    add_valid = _scatter_rows(torch.zeros_like(st.wobs_valid,
+                                               dtype=torch.uint8),
+                              tgt, moved.to(torch.uint8), "amax") > 0
+    add_meas = _scatter_rows(torch.zeros_like(st.wobs_meas), tgt,
+                             torch.where(moved[..., None], st.wobs_meas, 0.0),
+                             "sum")
+    take_new = add_valid & ~st.wobs_valid
+    wobs_meas = torch.where(take_new[..., None], add_meas, st.wobs_meas)
+    # the reference also clears here the stale window bits of landmarks
+    # culled earlier in sequences without a closure; no reader sees those
+    # bits (the window BA masks by lm_valid, slot reuse clears the row), and
+    # keeping them leaves such a sequence bit-identical
+    wobs_valid = torch.where(on[:, None, None],
+                             (st.wobs_valid | add_valid) & lm_valid[..., None],
+                             st.wobs_valid)
+
+    # stage 2: snap onto the candidate snapshot's (old-lap) geometry
+    snap_pc = st.sig_pc[b, cslot]                             # (S, P, 3) cam
+    snap_desc = st.sig_desc[b, cslot]
+    snap_valid = st.sig_pvalid[b, cslot]
+    pose_c = st.sig_pose[b, cslot]
+    Rc, tc = pose_c[:, :3, :3], pose_c[:, None, :3, 3]
+    p_w = (snap_pc - tc) @ Rc                                 # R^T (p - t)
+    dist2 = hamming_matrix(st.lm_desc, snap_desc)             # (S, M, P)
+    d2s = torch.sum((st.lm_pos[:, :, None, :] - p_w[:, None, :, :]) ** 2,
+                    dim=-1)
+    gate2 = ((new_mask & lm_valid & ~ok)[:, :, None] & snap_valid[:, None, :]
+             & (d2s <= r2))
+    dist2 = torch.where(gate2, dist2, torch.full_like(dist2, MASK_DIST))
+    nn2, ok2 = mutual_nn(dist2, HAMMING_DIST_THR_LOW)
+    ok2 = ok2 & on[:, None]
+    lm_pos = torch.where(ok2[..., None], take(p_w, nn2), st.lm_pos)
+    ray = lm_pos - st.lm_anchor_origin
+    depth = torch.linalg.norm(ray, dim=-1)
+    upd = ok2 & (depth > 1e-6)
+    lm_depth = torch.where(upd, depth, st.lm_depth)
+    lm_anchor_ray = torch.where(
+        upd[..., None], ray / torch.clamp(depth[..., None], min=1e-9),
+        st.lm_anchor_ray)
+    return st._replace(lm_valid=lm_valid, lm_n_obs=lm_n_obs,
+                       lm_last_seen=lm_last_seen, lm_pos=lm_pos,
+                       lm_depth=lm_depth, lm_anchor_ray=lm_anchor_ray,
+                       wobs_meas=wobs_meas, wobs_valid=wobs_valid)
+
+
 def loop_candidates(out: VOStepOut, frame_offset: int = 0) -> np.ndarray:
     """(N, 4) rows [sequence, query_frame, candidate_frame, score] for every
     frame of one ``advance`` output that reported a candidate.

@@ -1,7 +1,8 @@
 """The port runs without JAX and without the JAX package. In a fresh
 interpreter where ``import jax`` and ``import slam_tpu`` fail, every
-``slam_tpu_torch`` module and ``chip_smoke.py`` import, and a small VO chunk
-runs on the CPU. A subprocess, because this test process has already
+``slam_tpu_torch`` module and ``chip_smoke.py`` import, and a small
+``DeviceSlam`` session (two VO chunks and the host consumer) runs on the
+CPU. A subprocess, because this test process has already
 imported JAX (tests/conftest.py). No file of the port, nor chip_smoke.py or
 tools/profile_torch_vo.py, names ``slam_tpu`` in an import."""
 import ast
@@ -23,18 +24,29 @@ names = [m.name for m in pkgutil.walk_packages(slam_tpu_torch.__path__,
                                                "slam_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+assert {"slam_tpu_torch.pipeline.device_slam",
+        "slam_tpu_torch.pipeline.loop_closer",
+        "slam_tpu_torch.ops.sim3_opt"} <= set(names), names
 import chip_smoke
-from slam_tpu_torch.pipeline.device_vo import BatchedDeviceVO, DeviceVOConfig
+from slam_tpu_torch import DeviceSlam, DeviceSlamParams
+from slam_tpu_torch.pipeline.device_vo import DeviceVOConfig
 torch.set_num_threads(1)
 cfg = DeviceVOConfig(width=160, height=120, lm_capacity=64, max_keypoints=80,
                      window=2, window_ba_every=2, loop_every=1,
-                     loop_points=32, loop_words=64)
-vo = BatchedDeviceVO(cfg, batch=2, device="cpu")
+                     loop_points=32, loop_words=64, loop_min_gap=1)
+slam = DeviceSlam(cfg, batch=2, params=DeviceSlamParams(min_loop_score=0.0,
+                                                        min_closure_gap_s=0),
+                  device="cpu")
 rng = np.random.default_rng(0)
-out = vo.advance(rng.integers(0, 256, (2, 2, 120, 160), dtype=np.uint8),
-                 np.broadcast_to(np.eye(4, dtype=np.float32), (2, 2, 4, 4)))
+img = rng.integers(0, 256, (2, 2, 120, 160), dtype=np.uint8)
+eye = np.broadcast_to(np.eye(4, dtype=np.float32), (2, 2, 4, 4))
+for _ in range(2):
+    out = slam.advance(img, eye)
+slam.finish()
 assert out.pose_cw.shape == (2, 2, 4, 4)
 assert bool(torch.isfinite(out.pose_cw).all())
+assert slam.trajectory(1).shape == (4, 4, 4)
+assert slam.closures                    # the consumer tried the revisits
 for pkg in ("jax", "slam_tpu"):
     loaded = [m for m in sys.modules if m == pkg or m.startswith(pkg + ".")]
     assert loaded == [pkg] and sys.modules[pkg] is None, loaded

@@ -1,7 +1,8 @@
 """The port keeps its own copies of what it needs from the JAX package's
 JAX-free modules, and they equal their originals: the ORB pattern and patch
-radius, the static settings, the default camera, the NumPy SE(3) maps and
-the trained vocabulary file. Its entry points default to the CUDA card."""
+radius, the static settings (per-level sigma^2 included), the default
+camera, the NumPy SE(3)/Sim(3) maps, the host Hamming matrix and the trained
+vocabulary file. Its entry points default to the CUDA card."""
 import dataclasses
 import hashlib
 import inspect
@@ -14,11 +15,14 @@ import torch
 from slam_tpu import params as jparams
 from slam_tpu.geometry import camera as jcamera
 from slam_tpu.geometry import se3 as jse3
+from slam_tpu.native import hamming_matrix as jhamming_native
 from slam_tpu.ops import orb_pattern as jpattern
+from slam_tpu_torch import DeviceSlam
 from slam_tpu_torch import params as tparams
 from slam_tpu_torch.geometry import camera as tcamera
 from slam_tpu_torch.geometry import se3 as tse3
 from slam_tpu_torch.ops import orb_pattern as tpattern
+from slam_tpu_torch.ops.hamming import hamming_matrix_host
 from slam_tpu_torch.pipeline import device_vo as tvo
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -41,6 +45,8 @@ def test_static_settings_equal_the_originals(overrides):
         slam=tparams.ParametersSlam(**overrides)))
     assert t.maxNumberOfKeypointsPerLevel() == j.maxNumberOfKeypointsPerLevel()
     np.testing.assert_array_equal(t.scaleFactors, j.scaleFactors)
+    np.testing.assert_array_equal(t.levelSigmaSq, j.levelSigmaSq)
+    assert t.levelSigmaSq.dtype == j.levelSigmaSq.dtype
     assert (dataclasses.asdict(t.parameters.slam)
             == dataclasses.asdict(j.parameters.slam))
 
@@ -78,6 +84,35 @@ def test_se3_maps_equal_the_originals():
         np.testing.assert_array_equal(tse3.se3_exp(x), jse3.se3_exp(x))
 
 
+def test_sim3_maps_equal_the_originals():
+    rng = np.random.default_rng(3)
+    for _ in range(8):
+        T = jse3.se3_exp(rng.normal(0, 0.6, 6))
+        np.testing.assert_array_equal(tse3.camera_center(T),
+                                      jse3.camera_center(T))
+        np.testing.assert_array_equal(tse3.so3_log(T[:3, :3]),
+                                      jse3.so3_log(T[:3, :3]))
+        np.testing.assert_array_equal(tse3.rmat_to_quat(T[:3, :3]),
+                                      jse3.rmat_to_quat(T[:3, :3]))
+        j, t = jse3.Sim3.from_se3(T), tse3.Sim3.from_se3(T)
+        for lam in (0.0, 0.3, 1.0):
+            a = jse3.interpolate_sim3(jse3.Sim3.identity(), j, lam)
+            b = tse3.interpolate_sim3(tse3.Sim3.identity(), t, lam)
+            np.testing.assert_array_equal(b.to_se3(), a.to_se3())
+        np.testing.assert_array_equal((t.inverse() * t).to_se3(),
+                                      (j.inverse() * j).to_se3())
+
+
+def test_host_hamming_matrix_equals_the_native_one():
+    """The port's NumPy matrix against what the JAX package's closure
+    consumer calls (native popcount, or its NumPy fallback)."""
+    rng = np.random.default_rng(4)
+    a = rng.integers(0, 2 ** 32, (130, 8), dtype=np.uint32)
+    b = rng.integers(0, 2 ** 32, (97, 8), dtype=np.uint32)
+    np.testing.assert_array_equal(hamming_matrix_host(a, b),
+                                  jhamming_native(a, b))
+
+
 def test_vocabulary_file_is_a_byte_copy():
     def sha(path):
         with open(os.path.join(ROOT, path), "rb") as f:
@@ -88,7 +123,8 @@ def test_vocabulary_file_is_a_byte_copy():
 
 
 @pytest.mark.parametrize("fn", [tvo.make_vo_step, tvo.init_state,
-                                tvo.state_from_numpy, tvo.BatchedDeviceVO],
+                                tvo.state_from_numpy, tvo.BatchedDeviceVO,
+                                DeviceSlam],
                          ids=lambda f: f.__name__)
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
