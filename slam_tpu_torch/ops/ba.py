@@ -1,26 +1,34 @@
-"""Bundle adjustment: Levenberg-Marquardt with a dense Schur solve (port of
-slam_tpu/ops/ba.py, the branch the device VO's window BA runs).
+"""Bundle adjustment: Levenberg-Marquardt with a Schur solve (port of
+slam_tpu/ops/ba.py).
 
 Residuals are whitened normalized-camera reprojection edges (Huber,
 delta = sqrt(5.991)), SE3 odometry edges with EdgeSE3Expmap error
 log(est_b^-1 * meas * est_a), and unary SE3 priors. Normal-equation blocks
-are assembled with ``index_add_`` segment sums; landmarks are eliminated by
-forming the (6K, 6K) reduced camera system densely. Updates are
-left-multiplicative. Every tensor of a :class:`BAProblem` carries a leading
-batch dimension S (one independent problem per sequence).
+are assembled with ``index_add_`` segment sums. Landmarks are eliminated
+either by forming the (6K, 6K) reduced camera system densely
+(``cg_iters == 0``) or implicitly, with PCG on the Schur complement and a
+block-Jacobi preconditioner (``cg_iters > 0``, problems above
+``DENSE_SCHUR_MAX_KM``). Updates are left-multiplicative. Every tensor of a
+:class:`BAProblem` carries a leading batch dimension S (one independent
+problem per sequence; the interactive path's solves have S = 1).
 
-The implicit-Schur PCG branch of the JAX solver (``cg_iters > 0``) serves
-problems larger than ``DENSE_SCHUR_MAX_KM`` and is not ported yet.
+The JAX package's single-buffer uint32 transfer (``pack_problem``,
+``fuse_packed`` and the ``*_packed``/``*_fused`` entry points) is not
+ported: callers build the tensors directly, through pinned memory.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 
 from slam_tpu_torch.ops import lie
+from slam_tpu_torch.precision import pin_full_f32
 
 CHI2_THRESHOLD = 5.991  # reference: bundle_adjuster.cpp:28
+# Largest padded K*M for which the dense-Schur path builds its (K, M, 6, 3)
+# coupling tensor (72 B/pair): 1M pairs = 72 MB. Above this, PCG.
 DENSE_SCHUR_MAX_KM = 1 << 20
 
 
@@ -110,12 +118,9 @@ def _reproj_terms(poses, points, p: BAProblem, huber_delta):
     return r_w, J_pose, J_pt, chi2, w
 
 
-def _pe_error_fn(xi_a, xi_b, Ta, Tb, C):
-    """EdgeSE3Expmap error with left-mult tangents applied to both
-    vertices."""
-    A = lie.se3_exp(xi_a) @ Ta
-    B = lie.se3_exp(xi_b) @ Tb
-    return lie.se3_log(lie.se3_inverse(B) @ C @ A)
+def _pe_error_fn(Ta, Tb, C):
+    """EdgeSE3Expmap error log(Tb^-1 C Ta)."""
+    return lie.se3_log(lie.se3_inverse(Tb) @ C @ Ta)
 
 
 def _flat(x, lead):
@@ -124,20 +129,21 @@ def _flat(x, lead):
 
 def _pose_edge_terms(poses, p: BAProblem, jacobians: bool = True):
     """Whitened odometry-edge residuals (S, E, 6) and, when asked, their
-    Jacobians with respect to both vertices (zero for fixed vertices)."""
+    Jacobians with respect to both vertices' left-multiplied tangents
+    (exact closed forms, ``ops/lie``; zero for fixed vertices)."""
     S, E = p.pe_a.shape
-    zero = poses.new_zeros(S * E, 6)
     Ta = _flat(take(poses, p.pe_a), 2)
     Tb = _flat(take(poses, p.pe_b), 2)
     C = _flat(p.pe_meas, 2)
     Si = _flat(p.pe_sqrt_info, 2)
-    e0 = _pe_error_fn(zero, zero, Ta, Tb, C)
+    if jacobians:
+        e0, Ja, Jb = lie.edge_error_and_jacobians(Ta, Tb, C)
+    else:
+        e0 = _pe_error_fn(Ta, Tb, C)
     r = (Si @ e0[..., None])[..., 0].reshape(S, E, 6)
     r = _where(p.pe_valid, r, torch.zeros_like(r))
     if not jacobians:
         return r, None, None
-    Ja = lie.batched_jacfwd(lambda xa: _pe_error_fn(xa, zero, Ta, Tb, C), zero)
-    Jb = lie.batched_jacfwd(lambda xb: _pe_error_fn(zero, xb, Ta, Tb, C), zero)
     Ja = (Si @ Ja).reshape(S, E, 6, 6)
     Jb = (Si @ Jb).reshape(S, E, 6, 6)
     Ja = _where(p.pe_valid & ~take(p.pose_fixed, p.pe_a), Ja,
@@ -147,25 +153,22 @@ def _pose_edge_terms(poses, p: BAProblem, jacobians: bool = True):
     return r, Ja, Jb
 
 
-def _prior_error_fn(xi, T, P0):
-    return lie.se3_log(lie.se3_inverse(lie.se3_exp(xi) @ T) @ P0)
-
-
 def _prior_terms(poses, p: BAProblem, jacobians: bool = True):
     """Whitened unary-prior residuals (S, P, 6) and, when asked, their
     Jacobians (zero for fixed poses)."""
     S, P = p.pr_idx.shape
-    zero = poses.new_zeros(S * P, 6)
     T = _flat(take(poses, p.pr_idx), 2)
     P0 = _flat(p.pr_meas, 2)
     Si = _flat(p.pr_sqrt_info, 2)
-    e0 = _prior_error_fn(zero, T, P0)
+    if jacobians:
+        e0, J = lie.prior_error_and_jacobian(T, P0)
+    else:
+        e0 = lie.se3_log(lie.se3_inverse(T) @ P0)
     r = (Si @ e0[..., None])[..., 0].reshape(S, P, 6)
     r = _where(p.pr_valid, r, torch.zeros_like(r))
     if not jacobians:
         return r, None
-    J = (Si @ lie.batched_jacfwd(_prior_error_fn, zero, T, P0)).reshape(
-        S, P, 6, 6)
+    J = (Si @ J).reshape(S, P, 6, 6)
     ok = p.pr_valid & ~take(p.pose_fixed, p.pr_idx)
     J = _where(ok, J, torch.zeros_like(J))
     return r, J
@@ -197,8 +200,10 @@ def _total_cost(poses, points, p: BAProblem, huber_delta):
     return cost, chi2
 
 
-def _linearize_and_solve(poses, points, lam, p: BAProblem, huber_delta):
-    """One damped Gauss-Newton step: dense reduced camera system, then
+def _linearize_and_solve(poses, points, lam, p: BAProblem, huber_delta,
+                         cg_iters: int = 0):
+    """One damped Gauss-Newton step: the reduced camera system, solved
+    densely (``cg_iters == 0``) or by ``cg_iters`` PCG steps, then
     back-substitution for the points."""
     S, K = poses.shape[:2]
     M = points.shape[1]
@@ -246,6 +251,14 @@ def _linearize_and_solve(poses, points, lam, p: BAProblem, huber_delta):
     rhs = bp - Hpl_apply(torch.einsum("smij,smj->smi", Hll_inv, bl))
     rhs = _where(p.pose_fixed, torch.zeros_like(rhs), rhs)
 
+    if cg_iters > 0:
+        dx_p = _pcg(rhs, Hpp_d, Wab, Hll_inv, Hlp_apply, Hpl_apply, p, K,
+                    cg_iters)
+        dx_p = _where(p.pose_fixed, torch.zeros_like(rhs), dx_p)
+        dx_l = torch.einsum("smij,smj->smi", Hll_inv, bl - Hlp_apply(dx_p))
+        dx_l = _where(p.points_fixed, torch.zeros_like(dx_l), dx_l)
+        return dx_p, dx_l
+
     # dense Schur: the reduced (6K, 6K) camera system, solved directly
     Wkm = segment_sum(torch.einsum("soci,socj->soij", J_pose, J_pt),
                       p.obs_kf * M + p.obs_mp, K * M).reshape(S, K, M, 6, 3)
@@ -270,19 +283,60 @@ def _linearize_and_solve(poses, points, lam, p: BAProblem, huber_delta):
     return dx_p, dx_l
 
 
+def _pcg(rhs, Hpp_d, Wab, Hll_inv, Hlp_apply, Hpl_apply, p: BAProblem,
+         K: int, cg_iters: int):
+    """Implicit-Schur PCG with a block-Jacobi preconditioner, batched over
+    S: the Schur complement is applied as gather/segment-sum passes over
+    the observations and never formed."""
+    Minv = torch.linalg.inv_ex(Hpp_d)[0]
+
+    def precond(x):
+        return torch.einsum("skij,skj->ski", Minv, x)
+
+    def S_apply(xp):
+        y = torch.einsum("skij,skj->ski", Hpp_d, xp)
+        # pose-edge off-diagonal blocks
+        y = y + segment_sum(torch.einsum("seij,sej->sei", Wab,
+                                         take(xp, p.pe_b)), p.pe_a, K)
+        y = y + segment_sum(torch.einsum("seji,sej->sei", Wab,
+                                         take(xp, p.pe_a)), p.pe_b, K)
+        yl = torch.einsum("smij,smj->smi", Hll_inv, Hlp_apply(xp))
+        y = y - Hpl_apply(yl)
+        return _where(p.pose_fixed, xp, y)
+
+    def dot(a, b):
+        return torch.sum(a * b, dim=(-2, -1))[:, None, None]
+
+    x = torch.zeros_like(rhs)
+    r = rhs
+    z = precond(r)
+    d = z
+    for _ in range(cg_iters):
+        Ad = S_apply(d)
+        rz = dot(r, z)
+        alpha = rz / torch.clamp(dot(d, Ad), min=1e-20)
+        x = x + alpha * d
+        r_new = r - alpha * Ad
+        z_new = precond(r_new)
+        beta = dot(r_new, z_new) / torch.clamp(rz, min=1e-20)
+        d = z_new + beta * d
+        r, z = r_new, z_new
+    return x
+
+
 def lm_run(p: BAProblem, iterations: int, cg_iters: int,
            huber_delta: float, init_lambda: float) -> BAResult:
-    """``iterations`` LM steps with accept/reject and lambda schedule.
-    Matmuls must run in full f32 (``slam_tpu_torch/precision.py``)."""
-    if cg_iters != 0:
-        raise NotImplementedError("the implicit-Schur PCG branch "
-                                  "(cg_iters > 0) is not ported")
+    """``iterations`` LM steps with accept/reject and lambda schedule; the
+    camera system is solved densely (``cg_iters == 0``) or by ``cg_iters``
+    PCG steps. Matmuls must run in full f32
+    (``slam_tpu_torch/precision.py``)."""
     S = p.poses.shape[0]
     poses, points = p.poses, p.points
     cost, _ = _total_cost(poses, points, p, huber_delta)
     lam = torch.full((S,), init_lambda, dtype=poses.dtype, device=poses.device)
     for _ in range(iterations):
-        dx_p, dx_l = _linearize_and_solve(poses, points, lam, p, huber_delta)
+        dx_p, dx_l = _linearize_and_solve(poses, points, lam, p, huber_delta,
+                                          cg_iters)
         new_poses = lie.se3_exp(dx_p) @ poses
         new_points = points + dx_l
         new_cost, _ = _total_cost(new_poses, new_points, p, huber_delta)
@@ -296,8 +350,48 @@ def lm_run(p: BAProblem, iterations: int, cg_iters: int,
 
 
 def pick_cg_iters(n_poses_padded: int, n_points_padded: int) -> int:
-    """Static solver selection: 0 = dense Schur direct solve, else the PCG
-    iteration budget."""
+    """Solver selection shared by every BA call site, from the padded
+    sizes: 0 = dense Schur direct solve, else the PCG iteration budget."""
     if n_poses_padded * n_points_padded <= DENSE_SCHUR_MAX_KM:
         return 0
     return min(6 * n_poses_padded, 96)
+
+
+HUBER_DELTA = math.sqrt(CHI2_THRESHOLD)
+
+
+def solve_ba(p: BAProblem, iterations: int, cg_iters: int,
+             huber_delta: float = HUBER_DELTA,
+             init_lambda: float = 1e-4) -> BAResult:
+    """One LM solve in full f32."""
+    pin_full_f32()
+    return lm_run(p, iterations, cg_iters, huber_delta, init_lambda)
+
+
+def solve_ba_two_stage(p: BAProblem, stage2_pose_fixed: torch.Tensor,
+                       anchor_slot: torch.Tensor,
+                       anchor_sqrt_info: torch.Tensor,
+                       iterations: int, cg_iters: int,
+                       huber_delta: float = HUBER_DELTA,
+                       init_lambda: float = 1e-4) -> BAResult:
+    """Local BA's two-stage schedule (reference:
+    bundle_adjuster.cpp:321-373), batched over S.
+
+    Stage 1 runs with ``p.pose_fixed`` (all but the current keyframe
+    fixed); stage 2 unfixes per ``stage2_pose_fixed`` (S, K) and softly
+    anchors the stage-1 pose of keyframe ``anchor_slot`` (S,) with the
+    unary prior ``anchor_sqrt_info`` (S, 6, 6)."""
+    pin_full_f32()
+    res1 = lm_run(p, iterations, cg_iters, huber_delta, init_lambda)
+    slot = anchor_slot.to(torch.int64)[:, None]
+    S = slot.shape[0]
+    p2 = p._replace(
+        poses=res1.poses,
+        points=res1.points,
+        pose_fixed=stage2_pose_fixed,
+        pr_idx=slot,
+        pr_meas=take(res1.poses, slot),
+        pr_sqrt_info=anchor_sqrt_info[:, None],
+        pr_valid=torch.ones((S, 1), dtype=torch.bool,
+                            device=slot.device))
+    return lm_run(p2, iterations, cg_iters, huber_delta, init_lambda)

@@ -22,6 +22,8 @@ import numpy as np
 import torch
 
 HAMMING_DIST_THR_LOW = 50    # reference: match_base.h:13
+HAMMING_DIST_THR_HIGH = 100  # reference: match_base.h:14
+MAX_HAMMING_DIST = 256       # reference: match_base.h:15
 MASK_DIST = 10_000           # sentinel for gated-out pairs (> any Hamming)
 
 

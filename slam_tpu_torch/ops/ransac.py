@@ -1,13 +1,22 @@
-"""Two-view triangulation and the host Sim3 RANSAC (port of
-``triangulate_two_view_jax`` and ``sim3_ransac_host`` from
-slam_tpu/ops/ransac.py; the device RANSAC banks are not on the serving
-path)."""
+"""Two-view triangulation and Sim3 RANSAC (port of slam_tpu/ops/ransac.py:
+``triangulate_two_view_jax``, the device Sim3/rot-z RANSAC of the
+interactive loop closer, and the host NumPy twin that ``DeviceSlam``'s
+consumer runs).
+
+The device RANSAC solves all K hypotheses at once (closed-form Horn with a
+batched 4x4 ``eigh``; reference: loop_ransac.cpp:112-196, 277-312) and
+counts every hypothesis's inliers with one batched reprojection, then takes
+the argmax (replacing the loop at loop_ransac.cpp:67-105). Its hypothesis
+bank is drawn by a ``torch.Generator`` on the device, seeded per solve.
+"""
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from slam_tpu_torch.ops import camera as camera_ops
 
 CHI_SQ_2D = 9.21034  # p=0.01, loop_ransac.cpp:28
 
@@ -47,6 +56,182 @@ class Sim3RansacResult(NamedTuple):
     scale_12: float
     inliers: np.ndarray          # (N,) bool over match list
     num_inliers: int
+
+
+def compute_sim3(pts_1: torch.Tensor, pts_2: torch.Tensor):
+    """Horn closed-form absolute orientation with scale, batched.
+
+    ``pts_1``, ``pts_2``: (..., 3, 3) whose COLUMNS are corresponding points
+    (the reference's layout, loop_ransac.cpp:112-196). Returns (rot_21,
+    trans_21, scale_21) with p2 = s * R @ p1 + t. The eigenvector's sign is
+    free, and R is quadratic in it."""
+    c1 = pts_1.mean(dim=-1)
+    c2 = pts_2.mean(dim=-1)
+    a1 = pts_1 - c1[..., None]
+    a2 = pts_2 - c2[..., None]
+    M = a1 @ a2.transpose(-1, -2)
+    sxx, sxy, sxz = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
+    syx, syy, syz = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
+    szx, szy, szz = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2]
+    N = torch.stack([
+        torch.stack([sxx + syy + szz, syz - szy, szx - sxz, sxy - syx], -1),
+        torch.stack([syz - szy, sxx - syy - szz, sxy + syx, szx + sxz], -1),
+        torch.stack([szx - sxz, sxy + syx, -sxx + syy - szz, syz + szy], -1),
+        torch.stack([sxy - syx, szx + sxz, syz + szy, -sxx - syy + szz], -1),
+    ], dim=-2)
+    # N is symmetric: the unit quaternion maximizing the form is the
+    # eigenvector of the largest eigenvalue (ascending order)
+    _, vecs = torch.linalg.eigh(N)
+    q = vecs[..., :, -1]                                  # (w, x, y, z)
+    qw, qx, qy, qz = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    R = torch.stack([
+        torch.stack([1 - 2 * (qy * qy + qz * qz), 2 * (qx * qy - qz * qw),
+                     2 * (qx * qz + qy * qw)], -1),
+        torch.stack([2 * (qx * qy + qz * qw), 1 - 2 * (qx * qx + qz * qz),
+                     2 * (qy * qz - qx * qw)], -1),
+        torch.stack([2 * (qx * qz - qy * qw), 2 * (qy * qz + qx * qw),
+                     1 - 2 * (qx * qx + qy * qy)], -1),
+    ], dim=-2)
+    a1_in_2 = R @ a1
+    s = torch.sum(a2 * a1_in_2, dim=(-2, -1)) / torch.sum(a1 * a1,
+                                                          dim=(-2, -1))
+    t = c2 - s[..., None] * (R @ c1[..., None])[..., 0]
+    return R, t, s
+
+
+def compute_rot_z(pts_1: torch.Tensor, pts_2: torch.Tensor):
+    """Planar (yaw-only) Horn variant, batched (reference:
+    loop_ransac.cpp:277-312)."""
+    c1 = pts_1.mean(dim=-1)
+    c2 = pts_2.mean(dim=-1)
+    a1 = pts_1 - c1[..., None]
+    a2 = pts_2 - c2[..., None]
+    C = torch.sum(a1[..., :2, :] * a2[..., :2, :], dim=(-2, -1))
+    S = torch.sum(a1[..., 0, :] * a2[..., 1, :] - a1[..., 1, :] * a2[..., 0, :],
+                  dim=-1)
+    norm = torch.sqrt(C * C + S * S)
+    ct, st = C / norm, S / norm
+    zero, one = torch.zeros_like(ct), torch.ones_like(ct)
+    R = torch.stack([torch.stack([ct, -st, zero], -1),
+                     torch.stack([st, ct, zero], -1),
+                     torch.stack([zero, zero, one], -1)], dim=-2)
+    s = torch.sum(a2 * (R @ a1), dim=(-2, -1)) / torch.sum(a1 * a1,
+                                                           dim=(-2, -1))
+    t = c2 - s[..., None] * (R @ c1[..., None])[..., 0]
+    return R, t, s
+
+
+def sample_hypotheses(valid: torch.Tensor, iterations: int,
+                      seed: int) -> torch.Tensor:
+    """(K, 3) int64 bank of 3 distinct indices among the valid matches per
+    hypothesis (weights 0 for padding), from a generator on ``valid``'s
+    device seeded with ``seed``."""
+    gen = torch.Generator(device=valid.device)
+    gen.manual_seed(int(seed))
+    weights = valid.to(torch.float32).expand(int(iterations), -1)
+    return torch.multinomial(weights, 3, replacement=False, generator=gen)
+
+
+def sim3_ransac_core(idx, pts1, pts2, valid, repro1, repro2, vis1, vis2,
+                     chi1, chi2, kind1, params1, kind2, params2,
+                     dof: str, fix_scale: bool):
+    """Every hypothesis of the (K, 3) index bank ``idx`` at once: Horn
+    solves, the symmetric chi2-gated reprojection inlier count
+    (loop_ransac.cpp:198-254), argmax winner. Returns (count, R12, t12,
+    s12, inliers) as tensors on the device."""
+    s1 = pts1[idx].transpose(-1, -2)                 # (K, 3, 3) columns
+    s2 = pts2[idx].transpose(-1, -2)
+    solver = compute_rot_z if dof == "ZROT" else compute_sim3
+    R21, t21, s21 = solver(s1, s2)
+    if fix_scale:
+        s21 = torch.ones_like(s21)
+    s12 = 1.0 / s21
+    R12 = R21.transpose(-1, -2)
+    t12 = -s12[:, None] * torch.einsum("kij,kj->ki", R12, t21)
+
+    # project pts1 into cam2 under (s21 R21, t21) and pts2 into cam1 under
+    # (s12 R12, t12)
+    p1_in_2 = (torch.einsum("kij,nj->kni", R21 * s21[:, None, None], pts1)
+               + t21[:, None, :])                    # (K, N, 3)
+    p2_in_1 = (torch.einsum("kij,nj->kni", R12 * s12[:, None, None], pts2)
+               + t12[:, None, :])
+    proj1_in_2, v12 = camera_ops.project(kind2, params2, p1_in_2)
+    proj2_in_1, v21 = camera_ops.project(kind1, params1, p2_in_1)
+    err2 = torch.sum((proj1_in_2 - repro2[None]) ** 2, dim=-1)  # (K, N)
+    err1 = torch.sum((proj2_in_1 - repro1[None]) ** 2, dim=-1)
+    ok = (valid[None] & vis1[None] & vis2[None] & v12 & v21
+          & (err2 < chi2[None]) & (err1 < chi1[None]))
+    counts = torch.sum(ok, dim=1)                    # (K,)
+    best = torch.argmax(counts)
+    return counts[best], R12[best], t12[best], s12[best], ok[best]
+
+
+class Sim3Ransac:
+    """Equivalent of the reference ``LoopRansac`` (loop_ransac.hpp:27-109)
+    on ``device``.
+
+    Construct with camera-frame 3D correspondences; ``solve`` evaluates all
+    hypotheses in parallel. The match axis is padded to a multiple of 64
+    (padding has zero sampling weight and is excluded from the counts), as
+    in the JAX package, so the sampler sees the same weights."""
+
+    CHI_SQ_2D = CHI_SQ_2D
+
+    def __init__(self, camera1, camera2, pts1_cam, pts2_cam,
+                 sigma_sq1, sigma_sq2, device="cuda"):
+        self.device = torch.device(device)
+        self.n = len(pts1_cam)
+        n_pad = max(64, -(-self.n // 64) * 64)
+        self.valid = np.arange(n_pad) < self.n
+
+        def _pad(a, fill=0.0):
+            a = np.asarray(a)
+            out = np.full((n_pad,) + a.shape[1:], fill, a.dtype)
+            out[:self.n] = a
+            return out
+
+        self.kind1, self.params1 = camera_ops.pack_camera(camera1)
+        self.kind2, self.params2 = camera_ops.pack_camera(camera2)
+        self.pts1 = _pad(np.asarray(pts1_cam, np.float32).reshape(self.n, 3))
+        self.pts2 = _pad(np.asarray(pts2_cam, np.float32).reshape(self.n, 3))
+        self.chi1 = _pad((CHI_SQ_2D
+                          * np.asarray(sigma_sq1)).astype(np.float32))
+        self.chi2 = _pad((CHI_SQ_2D
+                          * np.asarray(sigma_sq2)).astype(np.float32))
+        # projections of each point into its own camera (loop_ransac.cpp:43-44)
+        pts1 = self.pts1[:self.n]
+        pts2 = self.pts2[:self.n]
+        r1, v1 = camera1.ray_to_pixel(pts1)
+        v1 &= camera1.is_valid_pixel(r1)
+        r2, v2 = camera2.ray_to_pixel(pts2)
+        v2 &= camera2.is_valid_pixel(r2)
+        self.repro1 = _pad(np.nan_to_num(r1).astype(np.float32))
+        self.repro2 = _pad(np.nan_to_num(r2).astype(np.float32))
+        self.vis1 = _pad(v1, fill=False)
+        self.vis2 = _pad(v2, fill=False)
+
+    def solve(self, iterations: int, dof: str = "SIM3", fix_scale: bool = False,
+              min_inliers: int = 20, seed: int = 94235682) -> Sim3RansacResult:
+        if self.n < 3 or self.n < min_inliers:
+            return Sim3RansacResult(False, np.eye(3), np.zeros(3), 1.0,
+                                    np.zeros(self.n, bool), 0)
+        from slam_tpu_torch.precision import pin_full_f32
+
+        pin_full_f32()
+        put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(
+            self.device)
+        valid = put(self.valid)
+        idx = sample_hypotheses(valid, int(iterations), seed)
+        out = sim3_ransac_core(
+            idx, put(self.pts1), put(self.pts2), valid, put(self.repro1),
+            put(self.repro2), put(self.vis1), put(self.vis2), put(self.chi1),
+            put(self.chi2), self.kind1, put(self.params1), self.kind2,
+            put(self.params2), dof, bool(fix_scale))
+        count, R12, t12, s12, inl = (t.cpu().numpy() for t in out)
+        ok = int(count) >= min_inliers
+        return Sim3RansacResult(ok, R12.astype(np.float64),
+                                t12.astype(np.float64), float(s12),
+                                inl[:self.n], int(count))
 
 
 def _horn_sim3_np(s1: np.ndarray, s2: np.ndarray):

@@ -1,8 +1,6 @@
-"""Runtime parameters and derived static settings (the port's copy of
-slam_tpu/params.py, same names and layout, without what the port does not
-use: ``StaticSettings.replace``; the port imports nothing of slam_tpu).
+"""Runtime parameters and derived static settings.
 
-Equivalent of the reference's externally-defined
+TPU-native equivalent of the reference's externally-defined
 ``odometry::ParametersSlam`` knob struct (the ~60 fields enumerated in
 SURVEY.md §2.12, referenced throughout the reference sources) plus
 ``slam::StaticSettings`` (reference: static_settings.{hpp,cpp}).
@@ -13,6 +11,8 @@ the reference's names so a user of the reference can map their configuration
 """
 from __future__ import annotations
 
+import dataclasses
+import math
 from dataclasses import dataclass, field
 from typing import List, Optional
 
@@ -88,9 +88,9 @@ class ParametersSlam:
 
     # --- place recognition (BoW-equivalent retrieval) -----------------------
     vocabularyPath: str = ""          # "" = in-tree trained codebook; else .npz
-    # 65536 words: the trained hierarchical-k-means vocabulary, the port's
-    # copy slam_tpu_torch/data/vocab_65536.npz; ops/bow.make_codebook raises
-    # for a size without a trained file
+    # 65536 words: the trained hierarchical-k-means vocabulary
+    # slam_tpu_torch/data/vocab_65536.npz (tools/train_vocab.py); sizes without a
+    # trained file fall back to seeded-random LSH centroids (ops/bow.py)
     bowVocabularySize: int = 65536    # number of visual words in the codebook
     bowFeatureGroups: int = 128       # nodes for feature-bucketed matching
     bowMinInCommonRatio: float = 0.8
@@ -153,6 +153,8 @@ def calc_level_sigma_sq(num_levels: int, scale_factor: float) -> np.ndarray:
 
 
 ORB_PATCH_RADIUS = 19        # reference: static_settings.hpp:14
+ORB_FAST_PATCH_SIZE = 31     # reference: static_settings.hpp:15
+ORB_FAST_PATCH_HALF_SIZE = ORB_FAST_PATCH_SIZE // 2
 
 
 class StaticSettings:
@@ -182,3 +184,8 @@ class StaticSettings:
             desired *= 1.0 / p.orbScaleFactor
         counts[p.orbScaleLevels - 1] = max(int(p.maxKeypoints) - total, 0)
         return counts
+
+    def replace(self, **slam_overrides) -> "StaticSettings":
+        """Convenience: new settings with some slam params overridden."""
+        slam = dataclasses.replace(self.parameters.slam, **slam_overrides)
+        return StaticSettings(Parameters(slam=slam, imuToCamera=self.parameters.imuToCamera))

@@ -277,7 +277,7 @@ def _pose_ba(state: VOState, pose_pred, meas_xy, matched,
     for _ in range(cfg.ba_iterations):
         r_w, J, _ = reproj_terms(T)
         re = _pose_edge_r(zero6, T, C, B, sqrt_info)
-        Je = lie.batched_jacfwd(_pose_edge_r, zero6, T, C, B, sqrt_info)
+        Je = sqrt_info @ lie.prior_error_and_jacobian(T, C @ B)[1]
         H = (torch.einsum("smci,smcj->sij", J, J)
              + Je.transpose(-1, -2) @ Je
              + (lam + 1e-8)[:, None, None] * eye6)

@@ -6,7 +6,6 @@ and one by one in JAX."""
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from slam_tpu.geometry import se3
@@ -111,5 +110,18 @@ def test_dense_schur_lm_matches_jax_in_float64():
 
 
 def test_pcg_branch_is_refused():
-    with pytest.raises(NotImplementedError):
-        tba.lm_run(_torch_problem([_window_problem(2)]), 1, 12, HUBER, 1e-4)
+    """The implicit-Schur PCG branch (``cg_iters > 0``), which the port once
+    refused, now runs: on a window problem, batched over two sequences, it
+    matches the JAX package's PCG (48 = 6 K steps, the budget
+    ``pick_cg_iters`` gives) within the dense test's tolerances."""
+    problems = [_window_problem(0), _window_problem(1)]
+    lm = jax.jit(jba._lm_run, static_argnums=(1, 2))
+    got = tba.lm_run(_torch_problem(problems), 2, 48, HUBER, 1e-4)
+    for s, p in enumerate(problems):
+        w = lm(jba.BAProblem(**{k: jnp.asarray(v) for k, v in p.items()}),
+               2, 48, HUBER, 1e-4)
+        assert np.abs(np.asarray(w.poses) - p["poses"]).max() > 1e-3
+        np.testing.assert_allclose(got.poses[s].numpy(), np.asarray(w.poses),
+                                   atol=1e-4)
+        np.testing.assert_allclose(got.points[s].numpy(),
+                                   np.asarray(w.points), rtol=1e-4, atol=1e-4)

@@ -55,8 +55,9 @@ def test_lie_matches_jax(dtype):
 
 
 def test_batched_jacfwd_matches_jax_jacfwd():
-    """The batched forward-mode Jacobian of an SE3 edge error agrees with
-    jax.jacfwd at the identity tangent (the BA edge linearisation)."""
+    """The port's forward-mode Jacobian of the SE3 prior error (written out
+    in ``ops/lie``, once a batched jvp) agrees with jax.jacfwd at the
+    identity tangent (the BA prior linearisation)."""
     rng = np.random.default_rng(1)
     Ta = np.asarray(jlie.se3_exp(jnp.asarray(_tangents(rng, 8, np.float32))))
     C = np.asarray(jlie.se3_exp(jnp.asarray(_tangents(rng, 8, np.float32))))
@@ -66,14 +67,44 @@ def test_batched_jacfwd_matches_jax_jacfwd():
 
     want = np.stack([np.asarray(jax.jacfwd(err_j)(jnp.zeros(6), T, c))
                      for T, c in zip(Ta, C)])
-
-    def err_t(xi, T, C):
-        return tlie.se3_log(tlie.se3_inverse(tlie.se3_exp(xi) @ T) @ C)
-
-    got = tlie.batched_jacfwd(err_t, torch.zeros(8, 6), torch.from_numpy(Ta),
-                              torch.from_numpy(C))
+    e, got = tlie.prior_error_and_jacobian(torch.from_numpy(Ta),
+                                           torch.from_numpy(C))
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
+    np.testing.assert_allclose(
+        e.numpy(), np.stack([np.asarray(err_j(jnp.zeros(6), T, c))
+                             for T, c in zip(Ta, C)]), atol=2e-5)
+
+
+@pytest.mark.parametrize("scale", [0.0, 1e-3, 0.3], ids=["exact", "small",
+                                                          "large"])
+def test_edge_jacobians_match_jax_jacfwd(scale):
+    """Both vertices' Jacobians of the EdgeSE3Expmap error against
+    jax.jacfwd of the JAX package's ``ba._pe_error_fn``, for measurements
+    that explain the poses exactly, nearly and loosely (exp's derivative at
+    the identity, log's small-angle branch and its arccos branch)."""
+    from slam_tpu.ops import ba as jba
+
+    rng = np.random.default_rng(2)
+    Ta = np.asarray(jlie.se3_exp(jnp.asarray(_tangents(rng, 8, np.float32))))
+    Tb = np.asarray(jlie.se3_exp(jnp.asarray(_tangents(rng, 8, np.float32))))
+    noise = np.asarray(jlie.se3_exp(jnp.asarray(
+        (rng.normal(0, 1, (8, 6)) * scale).astype(np.float32))))
+    C = (noise @ Tb @ np.linalg.inv(Ta)).astype(np.float32)
+    z = jnp.zeros(6)
+    want_a = np.stack([np.asarray(jax.jacfwd(
+        lambda x: jba._pe_error_fn(x, z, a, b, c))(z))
+        for a, b, c in zip(Ta, Tb, C)])
+    want_b = np.stack([np.asarray(jax.jacfwd(
+        lambda x: jba._pe_error_fn(z, x, a, b, c))(z))
+        for a, b, c in zip(Ta, Tb, C)])
+    e, Ja, Jb = tlie.edge_error_and_jacobians(
+        *(torch.from_numpy(x) for x in (Ta, Tb, C)))
+    np.testing.assert_allclose(Ja.numpy(), want_a, atol=2e-5)
+    np.testing.assert_allclose(Jb.numpy(), want_b, atol=2e-5)
+    np.testing.assert_allclose(
+        e.numpy(), np.stack([np.asarray(jba._pe_error_fn(z, z, a, b, c))
+                             for a, b, c in zip(Ta, Tb, C)]), atol=2e-5)
 
 
 def _cameras():

@@ -104,6 +104,14 @@ def test_constants_match_jax():
     assert tham.MASK_DIST == jham.MASK_DIST
 
 
+def test_match_thresholds_match_jax():
+    """The host map layer's thresholds, which the port's copies of
+    ``ops/matching`` and ``pipeline/matcher`` import."""
+    _, jham, _, _ = _jax_reference()
+    assert tham.HAMMING_DIST_THR_HIGH == jham.HAMMING_DIST_THR_HIGH == 100
+    assert tham.MAX_HAMMING_DIST == jham.MAX_HAMMING_DIST == 256
+
+
 @pytest.mark.parametrize("n,v", [(300, 512), (37, 1024)])
 def test_hamming_argmin_plain_matches_pallas_and_host(n, v):
     _, jham, _, pallas_hamming_argmin = _jax_reference()
@@ -125,14 +133,17 @@ def test_hamming_argmin_plain_matches_pallas_and_host(n, v):
 
 def test_make_codebook_is_the_trained_vocabulary():
     """The port loads the in-tree vocabulary the JAX package loads, and
-    raises where no trained vocabulary of that size exists."""
+    where no trained vocabulary of that size exists (or another seed is
+    asked for) the same seeded random centroids."""
     from slam_tpu_torch.ops.bow import make_codebook
 
     jbow = importlib.import_module("slam_tpu.ops.bow")
     np.testing.assert_array_equal(make_codebook(65536),
                                   jbow.make_codebook(65536))
-    with pytest.raises(FileNotFoundError):
-        make_codebook(1000)
+    for v, seed in ((1000, 94235682), (512, 7)):
+        np.testing.assert_array_equal(make_codebook(v, seed),
+                                      jbow.make_codebook(v, seed))
+    assert make_codebook(1000).shape == (1000, 8)
 
 
 def test_hamming_argmin_cpu_path_does_not_count_launches():

@@ -1,10 +1,11 @@
 """The port runs without JAX and without the JAX package. In a fresh
 interpreter where ``import jax`` and ``import slam_tpu`` fail, every
-``slam_tpu_torch`` module and ``chip_smoke.py`` import, and a small
-``DeviceSlam`` session (two VO chunks and the host consumer) runs on the
-CPU. A subprocess, because this test process has already
+``slam_tpu_torch`` module and ``chip_smoke.py`` import, and on the CPU a
+small ``DeviceSlam`` session (two VO chunks and the host consumer) and a
+small interactive ``Slam`` session (real ORB extractor, four rendered
+frames) run. A subprocess, because this test process has already
 imported JAX (tests/conftest.py). No file of the port, nor chip_smoke.py or
-tools/profile_torch_vo.py, names ``slam_tpu`` in an import."""
+the port's tools, names ``slam_tpu`` in an import."""
 import ast
 import os
 import subprocess
@@ -26,7 +27,9 @@ for name in names:
     importlib.import_module(name)
 assert {"slam_tpu_torch.pipeline.device_slam",
         "slam_tpu_torch.pipeline.loop_closer",
-        "slam_tpu_torch.ops.sim3_opt"} <= set(names), names
+        "slam_tpu_torch.ops.sim3_opt", "slam_tpu_torch.pipeline.slam_api",
+        "slam_tpu_torch.pipeline.mapper", "slam_tpu_torch.native",
+        "slam_tpu_torch.map.mapdb"} <= set(names), names
 import chip_smoke
 from slam_tpu_torch import DeviceSlam, DeviceSlamParams
 from slam_tpu_torch.pipeline.device_vo import DeviceVOConfig
@@ -47,6 +50,31 @@ assert out.pose_cw.shape == (2, 2, 4, 4)
 assert bool(torch.isfinite(out.pose_cw).all())
 assert slam.trajectory(1).shape == (4, 4, 4)
 assert slam.closures                    # the consumer tried the revisits
+# the interactive path: a Slam session with the real ORB extractor (fused
+# words at the 65,536-word vocabulary), BA and the loop closer on the CPU
+from slam_tpu_torch.map.keyframe import Pose
+from slam_tpu_torch.params import Parameters, ParametersSlam
+from slam_tpu_torch.pipeline.slam_api import Slam
+from slam_tpu_torch.utils.synthetic import (default_camera, make_world,
+                                            render_frame)
+cam = default_camera(160, 120)
+world = make_world(n_frames=4, n_landmarks=200, seed=3, camera=cam)
+patches = rng.integers(40, 255, (200, 11, 11)).astype(np.uint8)
+session = Slam.build(Parameters(slam=ParametersSlam(
+    maxKeypoints=120, keyframeDecisionMinIntervalSeconds=0.0,
+    useFrontendSlam=False)), device="cpu")
+futures = [session.add_frame(
+    frame=render_frame(world, patches, i, 160, 120),
+    pose_trail=[Pose(frame_number=j, t=world.times[j],
+                     pose_cw=world.poses_cw[j].copy())
+                for j in range(i, max(-1, i - 4), -1)],
+    features_ids=np.zeros(0, np.int64),
+    features_pts=np.zeros((0, 2), np.float32), camera=cam)
+    for i in range(4)]
+assert all(f.result().pose_mat.shape == (4, 4) for f in futures)
+assert session.end().result()
+assert session.mapper.map_db.keyframes
+assert session.mapper._orb_extractor.extractions >= 1
 for pkg in ("jax", "slam_tpu"):
     loaded = [m for m in sys.modules if m == pkg or m.startswith(pkg + ".")]
     assert loaded == [pkg] and sys.modules[pkg] is None, loaded
@@ -73,7 +101,9 @@ def _port_files():
                                                            "slam_tpu_torch"))
              for name in names if name.endswith(".py")]
     return sorted(files) + [os.path.join(ROOT, "chip_smoke.py"),
-                            os.path.join(ROOT, "tools", "profile_torch_vo.py")]
+                            os.path.join(ROOT, "tools", "profile_torch_vo.py"),
+                            os.path.join(ROOT, "tools",
+                                         "interactive_spread.py")]
 
 
 def test_port_files_import_nothing_of_slam_tpu():
@@ -88,8 +118,9 @@ def test_port_files_import_nothing_of_slam_tpu():
 def test_chip_smoke_imports_only_the_port():
     """chip_smoke.py reaches the repo only through ``slam_tpu_torch``."""
     roots = _imported_roots(os.path.join(ROOT, "chip_smoke.py"))
-    assert roots == {"concurrent", "ctypes", "json", "pathlib", "subprocess",
-                     "sys", "time", "numpy", "torch", "slam_tpu_torch"}, roots
+    assert roots == {"concurrent", "ctypes", "json", "os", "pathlib",
+                     "subprocess", "sys", "time", "numpy", "torch",
+                     "slam_tpu_torch"}, roots
 
 
 def test_port_imports_and_runs_without_jax():
@@ -97,4 +128,4 @@ def test_port_imports_and_runs_without_jax():
     proc = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]
-    assert int(proc.stdout.split()[-1]) >= 15   # every module was imported
+    assert int(proc.stdout.split()[-1]) >= 40   # every module was imported

@@ -22,8 +22,15 @@ from slam_tpu_torch import params as tparams
 from slam_tpu_torch.geometry import camera as tcamera
 from slam_tpu_torch.geometry import se3 as tse3
 from slam_tpu_torch.ops import orb_pattern as tpattern
+from slam_tpu_torch.ops.bow import BowIndex
+from slam_tpu_torch.ops.frontend import OrbExtractor
 from slam_tpu_torch.ops.hamming import hamming_matrix_host
+from slam_tpu_torch.ops.ransac import Sim3Ransac
 from slam_tpu_torch.pipeline import device_vo as tvo
+from slam_tpu_torch.pipeline.bundle_adjustment import WorkspaceBA
+from slam_tpu_torch.pipeline.loop_closer import LoopCloser
+from slam_tpu_torch.pipeline.mapper import Mapper
+from slam_tpu_torch.pipeline.slam_api import Slam
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -124,10 +131,16 @@ def test_vocabulary_file_is_a_byte_copy():
 
 @pytest.mark.parametrize("fn", [tvo.make_vo_step, tvo.init_state,
                                 tvo.state_from_numpy, tvo.BatchedDeviceVO,
-                                DeviceSlam],
-                         ids=lambda f: f.__name__)
+                                DeviceSlam, Slam, Slam.build, Mapper,
+                                OrbExtractor, BowIndex, LoopCloser,
+                                Sim3Ransac],
+                         ids=lambda f: f.__qualname__)
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_bundle_adjustment_workspace_defaults_to_the_card():
+    assert WorkspaceBA().device == torch.device("cuda")
 
 
 def test_default_device_is_the_card():
