@@ -16,8 +16,10 @@ ground truth and compares the front-end on CPU and card. Then it drives the
 interactive path, ``slam_tpu_torch.pipeline.slam_api.Slam``, at the
 pipeline bench's parameters over a biased square loop of 128 frames: the
 ORB extractor with its words at the 65,536-word vocabulary, local BA,
-loop closure; it checks the closure, the map's consistency and the final
-error against the odometry's, and the extractor's words on CPU and card.
+loop closure; it runs the session twice and checks that the second
+repeats the first bit for bit, the closure, the map's consistency and the
+final error against the odometry's, and the extractor's words on CPU and
+card.
 Any failed check raises, so the exit code is non-zero. Without a CUDA card
 it exits non-zero before printing any result.
 
@@ -26,7 +28,6 @@ The last line of standard output is one JSON object:
 the line before it is the kernels' JSON record.
 """
 import json
-import os
 import subprocess
 import sys
 import time
@@ -34,11 +35,6 @@ from pathlib import Path
 
 import numpy as np
 import torch
-
-# cuBLAS picks its workspaces when its first handle is made; this one keeps
-# its products deterministic, as the interactive phase's deterministic
-# algorithms ask
-os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 # main-path settings: the device-SLAM bench's device configuration
 WIDTH, HEIGHT = 640, 480
@@ -62,7 +58,7 @@ SLAM_CFG = dict(CFG, loop_min_score=0.9)
 # Seed 31: on these frames the JAX package's Mapper (CPU) accepts one
 # closure and ends 0.209 m from the truth against the odometry's 0.254 m
 # (seeds 30, 32, 33 closed too, but ended at 0.251, 0.455, 0.342 m)
-IA_FRAMES, IA_LAP, IA_SEED, IA_WARMUP = 128, 64, 31, 16
+IA_FRAMES, IA_LAP, IA_SEED = 128, 64, 31
 IA_PARAMS = dict(keyframeDecisionMinIntervalSeconds=0.0,
                  minVisibleMapPointsInCurrentFrameBA=8, localBAProblemSize=16,
                  adjacentSpaceSize=10, maxKeypoints=600, pipelinedLocalBA=True,
@@ -572,18 +568,13 @@ def make_interactive_inputs(cam):
     return world, frames, odom
 
 
-def phase_interactive(cam, world, frames, odom, smi, deterministic=True):
-    """``Slam.build`` -> ``add_frame`` -> ``end`` on the card: a short
-    warm-up session, then the timed one. Checks the closure, consistency,
-    the final keyframe's error against the odometry's, K1's launches
-    against the extractions and device quantizations, and frame 0's words
-    on CPU and card.
-
-    The card's ``index_add_`` (the BA's segment sums) adds floats
-    atomically in no fixed order, and the session's closures and final
-    error follow that rounding (``tools/interactive_spread.py``); with
-    ``deterministic`` torch's deterministic kernels make the checked
-    session the same in every run."""
+def phase_interactive(cam, world, frames, odom, smi):
+    """``Slam.build`` -> ``add_frame`` -> ``end`` on the card: the session
+    once as a warm-up, then again, timed. Checks that the timed session
+    repeats the warm-up bit for bit (the BA's segment sums add in a fixed
+    order), the closure, consistency, the final keyframe's error against
+    the odometry's, K1's launches against the extractions and device
+    quantizations, and frame 0's words on CPU and card."""
     from slam_tpu_torch import native
     from slam_tpu_torch.map.keyframe import MapperInput, Pose
     from slam_tpu_torch.ops import bow
@@ -606,13 +597,13 @@ def phase_interactive(cam, world, frames, odom, smi, deterministic=True):
                         for j in range(i, max(-1, i - 6), -1)],
             t=world.times[i])
 
-    def session(n):
+    def session():
         slam = Slam.build(params, device="cuda")
-        inputs = [mapper_input(i) for i in range(n)]
+        inputs = [mapper_input(i) for i in range(IA_FRAMES)]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for i, mi in enumerate(inputs):
-            if i + 1 < n:         # the next frame's extraction overlaps
+            if i + 1 < IA_FRAMES:  # the next frame's extraction overlaps
                 slam.mapper.prefetch(inputs[i + 1])
             fut = slam.add_frame(frame=mi.frame, pose_trail=mi.pose_trail,
                                  features_ids=mi.track_ids,
@@ -622,25 +613,32 @@ def phase_interactive(cam, world, frames, odom, smi, deterministic=True):
         torch.cuda.synchronize()
         return slam, time.perf_counter() - t0
 
-    torch.use_deterministic_algorithms(deterministic)
-    try:
-        session(IA_WARMUP)                    # warm-up: caches, allocator
-        stats = timer.enable_timing()
-        hamming_argmin.launches = 0
-        bow.quantize.device_calls = 0
-        slam, wall = session(IA_FRAMES)
-        launches = hamming_argmin.launches
-        quantized = bow.quantize.device_calls
-        timer.disable_timing()
-    finally:
-        torch.use_deterministic_algorithms(False)
+    def outcome(slam):
+        db = slam.mapper.map_db
+        return ([(int(e.kf_id1), int(e.kf_id2))
+                 for e in db.loop_closure_edges],
+                sorted(int(k) for k in db.map_points),
+                {int(k): kf.pose_cw for k, kf in db.keyframes.items()})
+
+    warm, _ = session()                       # warm-up: caches, allocator
+    stats = timer.enable_timing()
+    hamming_argmin.launches = 0
+    bow.quantize.device_calls = 0
+    slam, wall = session()
+    launches = hamming_argmin.launches
+    quantized = bow.quantize.device_calls
+    timer.disable_timing()
+    (edges0, mps0, poses0), (edges, mps, poses) = outcome(warm), outcome(slam)
+    assert edges == edges0 and mps == mps0 and poses.keys() == poses0.keys(), \
+        ("the session did not repeat", edges0, edges)
+    assert all(np.array_equal(poses[k], poses0[k]) for k in poses), \
+        "the session's poses did not repeat bit for bit"
     mapper = slam.mapper
     db = mapper.map_db
     check_consistency(db)
     extractions = mapper._orb_extractor.extractions
     assert launches == extractions + quantized > 0, (launches, extractions,
                                                      quantized)
-    edges = [(int(e.kf_id1), int(e.kf_id2)) for e in db.loop_closure_edges]
     centre = lambda T: -T[:3, :3].T @ T[:3, 3]
     final = db.latest_keyframe()
     k = int(final.id)
@@ -649,9 +647,9 @@ def phase_interactive(cam, world, frames, odom, smi, deterministic=True):
     odom_err = float(np.linalg.norm(centre(odom[k])
                                     - centre(world.poses_cw[k])))
     fps = IA_FRAMES / wall
-    print(f"interactive Slam ({'deterministic' if deterministic else 'default'}"
-          f" kernels): {IA_FRAMES} frames at {WIDTH}x{HEIGHT} in "
-          f"{wall:.3f} s = {fps:.2f} frames/s; {len(db.keyframes)} keyframes, "
+    print(f"interactive Slam: {IA_FRAMES} frames at {WIDTH}x{HEIGHT} in "
+          f"{wall:.3f} s = {fps:.2f} frames/s, the warm-up repeated bit for "
+          f"bit; {len(db.keyframes)} keyframes, "
           f"{len(db.map_points)} map points, closures {edges} (loop stats "
           f"{dict(mapper.loop_closer.stats.totals)}); final keyframe {k} "
           f"camera-centre error {err:.6f} m vs odometry {odom_err:.6f} m; "

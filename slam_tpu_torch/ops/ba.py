@@ -4,7 +4,7 @@ slam_tpu/ops/ba.py).
 Residuals are whitened normalized-camera reprojection edges (Huber,
 delta = sqrt(5.991)), SE3 odometry edges with EdgeSE3Expmap error
 log(est_b^-1 * meas * est_a), and unary SE3 priors. Normal-equation blocks
-are assembled with ``index_add_`` segment sums. Landmarks are eliminated
+are assembled with fixed-order segment sums. Landmarks are eliminated
 either by forming the (6K, 6K) reduced camera system densely
 (``cg_iters == 0``) or implicitly, with PCG on the Schur complement and a
 block-Jacobi preconditioner (``cg_iters > 0``, problems above
@@ -68,11 +68,19 @@ def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def segment_sum(values: torch.Tensor, idx: torch.Tensor, num: int):
     """Batched segment sum: values (S, O, ...), idx (S, O) in [0, num) ->
-    (S, num, ...)."""
+    (S, num, ...), each segment added in a fixed order, so that a solve
+    rounds the same way every run. On the card ``index_add_`` adds with
+    atomics in no fixed order; ``index_put_(accumulate=True)`` there sorts
+    the indices (stable) and adds each segment's rows one after another.
+    On the CPU ``index_add_`` adds in row order."""
     S, O = idx.shape
     flat = (idx + torch.arange(S, device=idx.device)[:, None] * num).reshape(-1)
+    src = values.reshape((S * O,) + values.shape[2:])
     out = values.new_zeros((S * num,) + values.shape[2:])
-    out.index_add_(0, flat, values.reshape((S * O,) + values.shape[2:]))
+    if out.is_cuda:
+        out.index_put_((flat,), src, accumulate=True)
+    else:
+        out.index_add_(0, flat, src)
     return out.reshape((S, num) + values.shape[2:])
 
 

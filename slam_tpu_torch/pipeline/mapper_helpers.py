@@ -931,7 +931,10 @@ def check_consistency(map_db: MapDB) -> None:
                 if cb is None:
                     cb = recount[b] = Counter()
                 cb[a] += 1
+    # a keyframe whose map points it alone observes has an empty count on
+    # both sides: the recount makes one, the cache drops it at zero
     cached = {k: v for k, v in store.covis.items() if v}
+    recount = {k: v for k, v in recount.items() if v}
     assert cached == recount, "covisibility cache out of sync"
     if map_db.keyframes:
         ids = set()

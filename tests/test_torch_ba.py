@@ -109,11 +109,11 @@ def test_dense_schur_lm_matches_jax_in_float64():
     np.testing.assert_allclose(float(got.cost[0]), float(w.cost), rtol=1e-10)
 
 
-def test_pcg_branch_is_refused():
-    """The implicit-Schur PCG branch (``cg_iters > 0``), which the port once
-    refused, now runs: on a window problem, batched over two sequences, it
-    matches the JAX package's PCG (48 = 6 K steps, the budget
-    ``pick_cg_iters`` gives) within the dense test's tolerances."""
+def test_pcg_branch_matches_jax():
+    """The implicit-Schur PCG branch (``cg_iters > 0``): on a window
+    problem, batched over two sequences, it matches the JAX package's PCG
+    (48 = 6 K steps, the budget ``pick_cg_iters`` gives) within the dense
+    test's tolerances."""
     problems = [_window_problem(0), _window_problem(1)]
     lm = jax.jit(jba._lm_run, static_argnums=(1, 2))
     got = tba.lm_run(_torch_problem(problems), 2, 48, HUBER, 1e-4)

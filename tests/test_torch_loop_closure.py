@@ -4,16 +4,20 @@
 test). ``jax.random`` streams cannot be reproduced, so the port's RANSAC
 sampler is fed the JAX package's hypothesis bank for each solve.
 
-The two sessions run in lockstep (poses within 1e-5 m) until frame 33,
-where a local BA meets points seen from one keyframe only: their 3x3
-normal blocks are singular in f32 (condition up to 2e9: the damping 1e-4,
-their smallest eigenvalue, is below one ulp of their largest entry), and
+The two sessions run in lockstep until frame 33, and the test holds them
+to it frame by frame: the same keyframe ids, camera centres within 5e-5 m
+(f32 LM solves in two orders of summation; the widest gap before frame
+33 is 1.2e-5 m). At frame 33 a local BA meets points seen from one
+keyframe only: their 3x3 normal blocks are singular in f32 (condition up
+to 2e9: the damping 1e-4, their smallest eigenvalue, is below one ulp of
+their largest entry), and
 the third LU pivot rounds to 0 in the JAX package's LAPACK and to -1.7e-4
 in torch's, so the JAX solve gets NaN and rejects its first LM step while
-the port takes it (ROADMAP section 3). From there the maps differ by a few map points and each package closes
-its own loop: the JAX package (10, 70), the port (3, 63). The test holds
-the port to what both must do: one closure, a lap apart, a consistent map
-and a final pose near the truth. Slow: about ninety seconds."""
+the port takes it (ROADMAP section 3). From there the maps differ by a
+few map points and each package closes its own loop: the JAX package
+(10, 70), the port (3, 63). For the rest of the session the test holds the
+port to what both must do: one closure, a lap apart, a consistent map and
+a final pose near the truth. Slow: about ninety seconds."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -50,14 +54,23 @@ def _jax_bank(valid, iterations, seed):
     return torch.from_numpy(np.asarray(jax.vmap(pick)(keys)).astype(np.int64))
 
 
+LOCKSTEP_FRAMES = 33  # frames 0-32, before the singular block of frame 33
+
+
 def _session(mod, mapper_cls, params, n_frames, world_kw, **kw):
+    """The session's world and mapper, and after each of the first
+    ``LOCKSTEP_FRAMES`` frames the camera centre of every keyframe."""
     world = mod.make_world(n_frames=n_frames, **world_kw)
     tracker = mod.TrackSimulator(world, max_tracks=50)
     mapper = mapper_cls(params, orb_extractor=mod.FakeOrbExtractor(
         world, tracker), **kw)
+    centres = []
     for i in range(n_frames):
         mapper.advance(mod.make_mapper_input(world, i, tracker))
-    return world, mapper
+        if i < LOCKSTEP_FRAMES:
+            centres.append({int(k): jse3.camera_center(kf.pose_cw)
+                            for k, kf in mapper.map_db.keyframes.items()})
+    return world, mapper, centres
 
 
 @pytest.mark.slow
@@ -68,13 +81,19 @@ class TestLoopClosure:
         n_frames = lap + 14
         world_kw = dict(n_landmarks=500, trajectory="loop", odom_drift=0.003,
                         seed=4, lap_frames=lap)
-        _, jm = _session(jworld, JMapper,
-                         JParameters(slam=JParametersSlam(**LOOP)), n_frames,
-                         world_kw)
+        _, jm, jcentres = _session(jworld, JMapper,
+                                   JParameters(slam=JParametersSlam(**LOOP)),
+                                   n_frames, world_kw)
         monkeypatch.setattr(transac, "sample_hypotheses", _jax_bank)
-        world, tm = _session(tworld, Mapper,
-                             Parameters(slam=ParametersSlam(**LOOP)),
-                             n_frames, world_kw, device="cpu")
+        world, tm, tcentres = _session(tworld, Mapper,
+                                       Parameters(slam=ParametersSlam(**LOOP)),
+                                       n_frames, world_kw, device="cpu")
+        # lockstep: the same keyframes, camera centres within 5e-5 m
+        assert len(tcentres) == len(jcentres) == LOCKSTEP_FRAMES
+        for i, (t, j) in enumerate(zip(tcentres, jcentres)):
+            assert sorted(t) == sorted(j), (i, sorted(t), sorted(j))
+            err = max(np.linalg.norm(t[k] - j[k]) for k in t)
+            assert err < 5e-5, (i, err)
         check_consistency(tm.map_db)
         edges = [(int(e.kf_id1), int(e.kf_id2))
                  for e in tm.map_db.loop_closure_edges]
@@ -92,7 +111,7 @@ class TestLoopClosure:
 
     def test_no_false_loop_on_line(self):
         world_kw = dict(n_landmarks=300, trajectory="line")
-        _, tm = _session(tworld, Mapper,
-                         Parameters(slam=ParametersSlam(**LOOP)), 30,
-                         world_kw, device="cpu")
+        _, tm, _ = _session(tworld, Mapper,
+                            Parameters(slam=ParametersSlam(**LOOP)), 30,
+                            world_kw, device="cpu")
         assert len(tm.map_db.loop_closure_edges) == 0

@@ -101,9 +101,7 @@ def _port_files():
                                                            "slam_tpu_torch"))
              for name in names if name.endswith(".py")]
     return sorted(files) + [os.path.join(ROOT, "chip_smoke.py"),
-                            os.path.join(ROOT, "tools", "profile_torch_vo.py"),
-                            os.path.join(ROOT, "tools",
-                                         "interactive_spread.py")]
+                            os.path.join(ROOT, "tools", "profile_torch_vo.py")]
 
 
 def test_port_files_import_nothing_of_slam_tpu():
@@ -118,9 +116,8 @@ def test_port_files_import_nothing_of_slam_tpu():
 def test_chip_smoke_imports_only_the_port():
     """chip_smoke.py reaches the repo only through ``slam_tpu_torch``."""
     roots = _imported_roots(os.path.join(ROOT, "chip_smoke.py"))
-    assert roots == {"concurrent", "ctypes", "json", "os", "pathlib",
-                     "subprocess", "sys", "time", "numpy", "torch",
-                     "slam_tpu_torch"}, roots
+    assert roots == {"concurrent", "ctypes", "json", "pathlib", "subprocess",
+                     "sys", "time", "numpy", "torch", "slam_tpu_torch"}, roots
 
 
 def test_port_imports_and_runs_without_jax():
