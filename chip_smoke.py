@@ -19,7 +19,12 @@ ORB extractor with its words at the 65,536-word vocabulary, local BA,
 loop closure; it runs the session twice and checks that the second
 repeats the first bit for bit, the closure, the map's consistency and the
 final error against the odometry's, and the extractor's words on CPU and
-card.
+card. Then: the BA's PCG branch on a global problem above the dense-Schur
+limit against the CPU, and the card's segment sums bit-equal to the CPU's;
+``DescriptorTracker`` over the interactive frames; ``bench.py``'s four
+concurrent sessions through ``parallel/batch.map_sequences``;
+``BatchedDeviceVO(mesh=)`` on a mesh that lists the card twice, under
+``utils/profiling.device_trace``; and ``parallel/multichip``'s update step.
 Any failed check raises, so the exit code is non-zero. Without a CUDA card
 it exits non-zero before printing any result.
 
@@ -63,6 +68,22 @@ IA_PARAMS = dict(keyframeDecisionMinIntervalSeconds=0.0,
                  minVisibleMapPointsInCurrentFrameBA=8, localBAProblemSize=16,
                  adjacentSpaceSize=10, maxKeypoints=600, pipelinedLocalBA=True,
                  useFrontendSlam=False)
+# PCG phase: a global-BA problem above the dense-Schur limit (K x M > 2^20),
+# about 8 observations a point; and the local BA's padding quanta
+# (slam_tpu/pipeline/bundle_adjustment.py:236-242) for the segment sums
+PCG_K, PCG_M, PCG_OBS = 160, 8192, 8
+QUANTA_K, QUANTA_M, QUANTA_OBS = 16, 256, 4          # O = 1024
+# tracker phase: the interactive phase's first frames
+TRACKER_FRAMES = 32
+# concurrent sessions: bench.py's bench_aggregate (render_world seeds
+# 10-13, the pipeline bench's parameters), 4 sessions cut from 30 frames to
+# 12: on the card four sessions together ran 0.95 frames/s, and 30 frames
+# took the phase 136 s
+SESSIONS, SESSION_FRAMES = 4, 12
+# multi-device update step at the interactive path's width
+MC_PAIRS, MC_PARAMS = 8, dict(max_keypoints=600, hypotheses=128,
+                              ba_capacity=256, ba_iterations=3)
+TRACE_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_trace"
 
 
 def cuda_time_ms(fn, reps=20, warmup=3):
@@ -219,6 +240,8 @@ def phase_kernel(smi, peaks):
     shapes = [("main path", S * 608, _loop_codebook(512)),
               ("vocabulary", 4096, vocab),
               ("interactive", 256 + IA_PARAMS["maxKeypoints"], vocab),
+              # DescriptorTracker's extractor keeps 128 tracked slots
+              ("tracker", 128 + IA_PARAMS["maxKeypoints"], vocab),
               ("N=1", 1, _loop_codebook(512)),
               ("N=2433", 2433, _loop_codebook(512)),
               ("V=1", 300, rand(1)),
@@ -270,7 +293,7 @@ def phase_kernel(smi, peaks):
     # matmul of the +-1 expansions
     from slam_tpu_torch.ops.hamming import unpack_bits_pm1
     line = []
-    for label, n, cb in shapes[:2]:
+    for label, n, cb in shapes[:3]:
         a = unpack_bits_pm1(torch.from_numpy(
             _near_copies(rng, cb, n, 24).view(np.int32)).cuda()).bfloat16()
         b = unpack_bits_pm1(torch.from_numpy(
@@ -673,6 +696,281 @@ def phase_interactive(cam, world, frames, odom, smi):
                 odom_err=odom_err)
 
 
+def phase_ba_card(smi):
+    """PCG on the card: a global-BA problem above the dense-Schur limit,
+    solved on the card and on the CPU (poses and points within 1e-4); then
+    the normal blocks' segment sums of a padded local-BA problem at the
+    reference's quanta, bit-equal on the card and the CPU."""
+    from slam_tpu_torch.ops import ba
+    from slam_tpu_torch.utils.synthetic import ba_problem
+
+    assert PCG_K * PCG_M > ba.DENSE_SCHUR_MAX_KM
+    cg = ba.pick_cg_iters(PCG_K, PCG_M)
+    assert cg == 96, cg
+    p = ba_problem(PCG_K, PCG_M, PCG_OBS, seed=0)
+    on = lambda q, dev: type(q)(*(t.to(dev) for t in q))
+    t0 = time.perf_counter()
+    cpu = ba.solve_ba(p, 5, cg)
+    cpu_s = time.perf_counter() - t0
+    pc = on(p, "cuda")
+    ba.solve_ba(pc, 5, cg)                          # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = ba.solve_ba(pc, 5, cg)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    cost0 = float(ba._total_cost(p.poses, p.points, p, ba.HUBER_DELTA)[0])
+    pose_err = float((card.poses.cpu() - cpu.poses).abs().max())
+    point_err = float((card.points.cpu() - cpu.points).abs().max())
+    # the f32 floor of this problem: the CPU's f32 solve against its f64 one
+    f64 = ba.solve_ba(type(p)(*(t.double() if t.is_floating_point() else t
+                                for t in p)), 5, cg)
+    floor = float((cpu.points.double() - f64.points).abs().max())
+    print(f"PCG global BA K={PCG_K} M={PCG_M} O={PCG_M * PCG_OBS} (K x M = "
+          f"{PCG_K * PCG_M} > {ba.DENSE_SCHUR_MAX_KM}), 5 LM iterations x "
+          f"{cg} PCG steps: cost {cost0:.1f} -> card {float(card.cost):.1f}, "
+          f"CPU {float(cpu.cost):.1f}; card vs CPU poses {pose_err:.2e}, "
+          f"points {point_err:.2e} (CPU f32 vs f64 points {floor:.2e}); "
+          f"card {card_s * 1e3:.1f} ms, CPU "
+          f"{cpu_s * 1e3:.1f} ms; on {smi}")
+    assert bool(torch.isfinite(card.poses).all()), "PCG diverged on the card"
+    assert float(card.cost) < 0.5 * cost0, (float(card.cost), cost0)
+    assert pose_err < 1e-4 and point_err < 1e-4, (pose_err, point_err)
+
+    # the normal blocks each LM step sums, from the same inputs
+    q = ba_problem(QUANTA_K, QUANTA_M, QUANTA_OBS, seed=1)
+    r, J_pose, J_pt, _, _ = ba._reproj_terms(q.poses, q.points, q,
+                                             ba.HUBER_DELTA)
+    M = QUANTA_M
+    blocks = {
+        "Hpp 6x6": (torch.einsum("soci,socj->soij", J_pose, J_pose),
+                    q.obs_kf, QUANTA_K),
+        "Wkm 6x3": (torch.einsum("soci,socj->soij", J_pose, J_pt),
+                    q.obs_kf * M + q.obs_mp, QUANTA_K * M),
+        "Hll 3x3": (torch.einsum("soci,socj->soij", J_pt, J_pt), q.obs_mp, M),
+        "bp 6": (-torch.einsum("soci,soc->soi", J_pose, r), q.obs_kf,
+                 QUANTA_K),
+        "bl 3": (-torch.einsum("soci,soc->soi", J_pt, r), q.obs_mp, M)}
+    for name, (v, idx, n) in blocks.items():
+        want = ba.segment_sum(v, idx, n)
+        got = ba.segment_sum(v.cuda(), idx.cuda(), n).cpu()
+        assert torch.equal(got, want), (name, float((got - want).abs().max()))
+    print(f"segment_sum card vs CPU at K={QUANTA_K} M={QUANTA_M} "
+          f"O={QUANTA_M * QUANTA_OBS}: bit-equal for "
+          + ", ".join(blocks))
+    return dict(pcg_card_ms=card_s * 1e3, pcg_cpu_ms=cpu_s * 1e3,
+                pose_err=pose_err, point_err=point_err)
+
+
+def phase_tracker(frames, smi):
+    """``DescriptorTracker(device="cuda")`` over the interactive phase's
+    first frames: tracks persist, ids are unique and fresh ids monotonic,
+    and K1 ran once per extraction."""
+    from slam_tpu_torch.frontends.descriptor_tracker import DescriptorTracker
+    from slam_tpu_torch.ops.hamming_argmin import hamming_argmin
+    from slam_tpu_torch.params import Parameters, ParametersSlam, \
+        StaticSettings
+
+    settings = StaticSettings(Parameters(slam=ParametersSlam(**IA_PARAMS)))
+    warm = DescriptorTracker(settings, WIDTH, HEIGHT, device="cuda")
+    for f in frames[:2]:
+        warm.process(f)
+    tracker = DescriptorTracker(settings, WIDTH, HEIGHT, device="cuda")
+    torch.cuda.synchronize()
+    hamming_argmin.launches = 0
+    t0 = time.perf_counter()
+    out = [tracker.process(f) for f in frames[:TRACKER_FRAMES]]
+    wall = time.perf_counter() - t0
+    launches = hamming_argmin.launches
+    seen, carried = set(), []
+    for prev, cur in zip(out, out[1:]):
+        carried.append(len(set(prev.tracked_id_list.tolist())
+                           & set(cur.tracked_id_list.tolist())))
+    for tf in out:
+        ids = tf.tracked_id_list.tolist()
+        assert len(ids) == len(set(ids)), "track ids repeat within a frame"
+        seen.update(ids)
+    assert len(out[0].tracked_id_list) > 30, len(out[0].tracked_id_list)
+    # the square loop turns at every LAP // 4 frames; tracks carry along
+    # the first side
+    side = IA_LAP // 4
+    assert min(carried[:side - 1]) > 15, carried
+    assert tracker._next_id == max(seen) + 1
+    extractions = tracker.extractor.extractions
+    assert launches == extractions == TRACKER_FRAMES, (launches, extractions)
+    print(f"DescriptorTracker: {TRACKER_FRAMES} frames at {WIDTH}x{HEIGHT} "
+          f"in {wall:.3f} s = {wall / TRACKER_FRAMES * 1e3:.2f} ms a frame; "
+          f"{len(out[0].tracked_id_list)} tracks on frame 0, carried "
+          f"{min(carried[:side - 1])}-{max(carried)} a frame, {len(seen)} "
+          f"ids; K1 launches {launches} = {extractions} extractions; "
+          f"on {smi}")
+    return dict(launches=launches, ms_per_frame=wall / TRACKER_FRAMES * 1e3)
+
+
+def make_session_inputs():
+    """bench.py's bench_aggregate sequences: render_world(seed=10 + s)
+    over SESSION_FRAMES frames, frames through render_frame, odometry pose
+    trails."""
+    from slam_tpu_torch.map.keyframe import MapperInput, Pose
+    from slam_tpu_torch.utils.synthetic import (default_camera, make_world,
+                                                render_frame)
+
+    seqs = []
+    for s in range(SESSIONS):
+        world = make_world(n_frames=SESSION_FRAMES, n_landmarks=500,
+                           seed=10 + s, trajectory="line",
+                           camera=default_camera(WIDTH, HEIGHT))
+        patches = np.random.default_rng(10 + s + 1).integers(
+            40, 255, (500, 11, 11)).astype(np.uint8)
+        seqs.append([MapperInput(
+            frame=render_frame(world, patches, i, WIDTH, HEIGHT),
+            camera=world.camera, track_ids=np.zeros(0, np.int64),
+            track_pts=np.zeros((0, 2), np.float32), track_depths=None,
+            pose_trail=[Pose(frame_number=j, t=world.times[j],
+                             pose_cw=world.odometry_cw[j].copy())
+                        for j in range(i, max(-1, i - 6), -1)],
+            t=world.times[i]) for i in range(SESSION_FRAMES)])
+    return seqs
+
+
+def phase_sessions(seqs, smi):
+    """``map_sequences(device="cuda")``: the sessions concurrently, then the
+    first alone on the same frames. Every map passes the audit, and K1 ran
+    once per extraction and device quantization of every session."""
+    from slam_tpu_torch.ops import bow
+    from slam_tpu_torch.ops.hamming_argmin import hamming_argmin
+    from slam_tpu_torch.parallel.batch import map_sequences
+    from slam_tpu_torch.params import Parameters, ParametersSlam
+    from slam_tpu_torch.pipeline.mapper_helpers import check_consistency
+
+    params = Parameters(slam=ParametersSlam(**IA_PARAMS))
+
+    def run(sequences):
+        torch.cuda.synchronize()
+        hamming_argmin.launches = 0
+        bow.quantize.device_calls = 0
+        t0 = time.perf_counter()
+        mappers = map_sequences(sequences, params,
+                                n_workers=len(sequences), device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for m in mappers:
+            check_consistency(m.map_db)
+        extractions = sum(m._orb_extractor.extractions for m in mappers)
+        launches, quantized = (hamming_argmin.launches,
+                               bow.quantize.device_calls)
+        assert launches == extractions + quantized > 0, (
+            launches, extractions, quantized)
+        return mappers, wall, launches
+    mappers, wall, launches = run(seqs)
+    _, alone_wall, _ = run(seqs[:1])
+    agg = SESSIONS * SESSION_FRAMES / wall
+    alone = SESSION_FRAMES / alone_wall
+    kfs = [len(m.map_db.keyframes) for m in mappers]
+    print(f"concurrent sessions: {SESSIONS} x {SESSION_FRAMES} frames at "
+          f"{WIDTH}x{HEIGHT} in {wall:.3f} s = {agg:.2f} frames/s aggregate; "
+          f"one session alone {alone:.2f} frames/s ({agg / alone:.2f}x); "
+          f"keyframes {kfs}; every map consistent; K1 launches {launches} = "
+          f"extractions + device quantizations; on {smi}")
+    return dict(launches=launches, fps=agg, alone_fps=alone)
+
+
+def phase_mesh(cam, worlds, images, deltas, smi):
+    """``BatchedDeviceVO(mesh=)`` on a mesh that lists the card twice (data
+    axis 2), one chunk at the main path's configuration, held to the
+    unsharded run; the sharded chunk runs under ``profiling.device_trace``,
+    whose trace must hold CUDA kernels and the annotation."""
+    from slam_tpu_torch.parallel.mesh import make_mesh
+    from slam_tpu_torch.pipeline.device_vo import (BatchedDeviceVO,
+                                                   DeviceVOConfig)
+    from slam_tpu_torch.utils import profiling
+
+    cfg = DeviceVOConfig(**CFG)
+    p0 = np.stack([w.poses_cw[0] for w in worlds]).astype(np.float32)
+    mesh = make_mesh(2, devices=["cuda:0", "cuda:0"])
+    chunk = (images[:, :CHUNK], deltas[:, :CHUNK])
+    plain = BatchedDeviceVO(cfg, batch=S, camera=cam, device="cuda")
+    plain.reset(p0)
+    want = plain.advance(*chunk)
+    sharded = BatchedDeviceVO(cfg, batch=S, camera=cam, mesh=mesh)
+    sharded.reset(p0)
+    assert len(sharded.shard_devices) == 2
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profiling.device_trace(str(TRACE_DIR)):
+        with profiling.annotate("chip_smoke_mesh_chunk"):
+            got = sharded.advance(*chunk)
+    wall = time.perf_counter() - t0
+    pose_err = float((got.pose_cw - want.pose_cw).abs().max())
+    np.testing.assert_allclose(got.pose_cw.cpu().numpy(),
+                               want.pose_cw.cpu().numpy(), rtol=1e-4,
+                               atol=1e-5)
+    assert torch.equal(got.n_matched, want.n_matched)
+    np.testing.assert_allclose(sharded.state.win_pose_cw.cpu().numpy(),
+                               plain.state.win_pose_cw.cpu().numpy(),
+                               rtol=1e-4, atol=1e-5)
+    with open(TRACE_DIR / profiling.TRACE_FILE) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    assert kernels, "the trace holds no CUDA kernel"
+    assert any(e.get("name") == "chip_smoke_mesh_chunk" for e in events)
+    print(f"BatchedDeviceVO(mesh=) S={S} over 2 shards of the card, one "
+          f"chunk of {CHUNK} frames: poses within {pose_err:.2e} of the "
+          f"unsharded run, n_matched equal; the profiled chunk took "
+          f"{wall:.3f} s, its trace holds {len(kernels)} CUDA kernels and "
+          f"the annotation; on {smi}")
+    return dict(pose_err=pose_err, trace_kernels=len(kernels))
+
+
+def phase_multichip(smi):
+    """``build_update_step`` on a (1, 1) mesh of the card at the
+    interactive path's width: 8 frame pairs rendered on a line trajectory
+    (the reference test's scene); every pair finds >= 8 essential inliers
+    and a finite BA cost."""
+    from slam_tpu_torch.parallel.mesh import make_mesh
+    from slam_tpu_torch.parallel.multichip import build_update_step
+    from slam_tpu_torch.utils.synthetic import (default_camera, make_world,
+                                                visible_landmarks)
+
+    world = make_world(n_frames=4, n_landmarks=300, seed=3,
+                       trajectory="line", camera=default_camera(WIDTH, HEIGHT))
+    patches = np.random.default_rng(7).integers(40, 255, (300, 9, 9)).astype(
+        np.uint8)
+
+    def render(i):
+        img = np.full((HEIGHT, WIDTH), 20, np.uint8)
+        vis, pix = visible_landmarks(world, i, margin=6.0)
+        for li in vis:
+            x, y = int(round(pix[li, 0])), int(round(pix[li, 1]))
+            y0, y1 = max(0, y - 4), min(HEIGHT, y + 5)
+            x0, x1 = max(0, x - 4), min(WIDTH, x + 5)
+            img[y0:y1, x0:x1] = patches[li][:y1 - y0, :x1 - x0]
+        return img
+    images = np.stack([render(i % 4) for i in range(MC_PAIRS)]).astype(
+        np.float32)
+    mesh = make_mesh(1, axis_names=("data", "hyp"))
+    assert dict(mesh.shape) == {"data": 1, "hyp": 1}
+    step = build_update_step(mesh, WIDTH, HEIGHT, camera=world.camera,
+                             **MC_PARAMS)
+    step(images)                                    # warm-up
+    torch.cuda.synchronize()
+    reps = 3
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = step(images)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    ess = out.essential_inliers.cpu().numpy()
+    cost = out.ba_cost.cpu().numpy()
+    print(f"multichip update step, {MC_PAIRS} pairs at {WIDTH}x{HEIGHT} "
+          f"{MC_PARAMS}: essential inliers {ess.tolist()}, Sim3 inliers "
+          f"{out.sim3_inliers.cpu().numpy().tolist()}, BA cost "
+          f"{np.round(cost, 3).tolist()}; {ms:.1f} ms a step; on {smi}")
+    assert (ess >= 8).all(), ess
+    assert np.isfinite(cost).all(), cost
+    return dict(ms=ms)
+
+
 def phase_frontend(images):
     """Frame 0 of every sequence through the front-end on CPU (the plain
     path) and on the card."""
@@ -718,7 +1016,13 @@ def main():
           f"on {smi}")
     slam = phase_device_slam(cam, *make_slam_inputs(cam), smi)
     phase_frontend(images)
-    interactive = phase_interactive(cam, *make_interactive_inputs(cam), smi)
+    ia_inputs = make_interactive_inputs(cam)
+    interactive = phase_interactive(cam, *ia_inputs, smi)
+    phase_ba_card(smi)
+    tracker = phase_tracker(ia_inputs[1], smi)
+    sessions = phase_sessions(make_session_inputs(), smi)
+    phase_mesh(cam, worlds, images, deltas, smi)
+    phase_multichip(smi)
     k, voc = kernel["main path"], kernel["vocabulary"]
     ia = kernel["interactive"]
     print(json.dumps({"kernels": [{
@@ -734,7 +1038,9 @@ def main():
         "device_slam_launches": slam["launches"],
         "interactive_launches": interactive["launches"],
         "interactive_ms": ia["ms"], "interactive_plain_ms": ia["plain_ms"],
-        "interactive_bound_ms": ia["bound_ms"]}]}))
+        "interactive_bound_ms": ia["bound_ms"],
+        "tracker_launches": tracker["launches"],
+        "sessions_launches": sessions["launches"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -90,13 +90,15 @@ def quantize(descriptors: np.ndarray, codebook: np.ndarray, device,
     from slam_tpu_torch import native
     threshold = (1 << 23) if native.available() else (1 << 18)
     if n * len(codebook) >= threshold:
-        from slam_tpu_torch.ops.hamming_argmin import hamming_argmin
+        from slam_tpu_torch.ops.hamming_argmin import (COUNT_LOCK,
+                                                       hamming_argmin)
         if codebook_dev is None:
             codebook_dev = device_codebook(codebook, device)
         d = torch.from_numpy(np.ascontiguousarray(descriptors, np.uint32)
                              .view(np.int32)).to(device)
         _, idx = hamming_argmin(d, codebook_dev)
-        quantize.device_calls += 1
+        with COUNT_LOCK:
+            quantize.device_calls += 1
         return idx.cpu().numpy()
     words = native.hamming_argmin(descriptors, codebook)
     if words is not None:

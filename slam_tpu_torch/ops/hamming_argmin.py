@@ -17,11 +17,16 @@ extraction and ``ops/bow.quantize``'s device branch.
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from slam_tpu_torch.ops.hamming import hamming_matrix
 
 
+# concurrent sessions (parallel/batch.py) launch from several threads; the
+# launch counters add under this lock so that no launch goes uncounted
+COUNT_LOCK = threading.Lock()
 # codebook rows per distance matrix of the plain version: an (N, 65536)
 # float32 matrix would take 224 MB at N = 856
 _PLAIN_CHUNK = 8192
@@ -56,7 +61,8 @@ def hamming_argmin(desc: torch.Tensor, codebook: torch.Tensor):
     from slam_tpu_torch.kernels import hamming_argmin as kernel
 
     dist, idx, launched = kernel.launch(desc, codebook)
-    hamming_argmin.launches += launched
+    with COUNT_LOCK:
+        hamming_argmin.launches += launched
     return dist, idx
 
 

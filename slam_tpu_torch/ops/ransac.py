@@ -1,13 +1,18 @@
-"""Two-view triangulation and Sim3 RANSAC (port of slam_tpu/ops/ransac.py:
-``triangulate_two_view_jax``, the device Sim3/rot-z RANSAC of the
-interactive loop closer, and the host NumPy twin that ``DeviceSlam``'s
-consumer runs).
+"""Two-view geometry and many-hypothesis RANSAC (port of
+slam_tpu/ops/ransac.py): ``triangulate_two_view_jax``, the device Sim3/rot-z
+RANSAC of the interactive loop closer, the host NumPy twin that
+``DeviceSlam``'s consumer runs, and the essential-matrix 8-point RANSAC
+with its pose recovery.
 
-The device RANSAC solves all K hypotheses at once (closed-form Horn with a
-batched 4x4 ``eigh``; reference: loop_ransac.cpp:112-196, 277-312) and
-counts every hypothesis's inliers with one batched reprojection, then takes
-the argmax (replacing the loop at loop_ransac.cpp:67-105). Its hypothesis
-bank is drawn by a ``torch.Generator`` on the device, seeded per solve.
+The device RANSACs solve all K hypotheses at once (closed-form Horn with a
+batched 4x4 ``eigh``, reference: loop_ransac.cpp:112-196, 277-312; the
+8-point nullspace from a batched 9x9 ``eigh`` and the rank-2 projection from
+a batched 3x3 SVD, essential_solver.cc:87-118) and score every hypothesis
+with one batched pass, then take the argmax (replacing the loops at
+loop_ransac.cpp:67-105 and essential_solver.cc:11-85). Their cores take an
+explicit hypothesis bank of match indices and any leading batch dimensions;
+the default bank is drawn by a ``torch.Generator`` on the device, seeded
+per solve.
 """
 from __future__ import annotations
 
@@ -121,49 +126,71 @@ def compute_rot_z(pts_1: torch.Tensor, pts_2: torch.Tensor):
     return R, t, s
 
 
-def sample_hypotheses(valid: torch.Tensor, iterations: int,
-                      seed: int) -> torch.Tensor:
-    """(K, 3) int64 bank of 3 distinct indices among the valid matches per
-    hypothesis (weights 0 for padding), from a generator on ``valid``'s
-    device seeded with ``seed``."""
+def sample_hypotheses(valid: torch.Tensor, iterations: int, seed: int,
+                      size: int = 3) -> torch.Tensor:
+    """(..., K, size) int64 bank of ``size`` distinct indices among the
+    valid matches per hypothesis (weights 0 for padding), for ``valid``
+    (..., N), from a generator on ``valid``'s device seeded with ``seed``."""
     gen = torch.Generator(device=valid.device)
     gen.manual_seed(int(seed))
-    weights = valid.to(torch.float32).expand(int(iterations), -1)
-    return torch.multinomial(weights, 3, replacement=False, generator=gen)
+    lead, n = valid.shape[:-1], valid.shape[-1]
+    weights = valid.to(torch.float32).reshape(-1, 1, n).expand(
+        -1, int(iterations), n).reshape(-1, n)
+    idx = torch.multinomial(weights, size, replacement=False, generator=gen)
+    return idx.reshape(lead + (int(iterations), size))
+
+
+def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x (..., N, C), idx (..., K, J) -> (..., K, J, C): the rows of each
+    hypothesis, for any leading batch dimensions."""
+    return torch.take_along_dim(x[..., None, :, :], idx[..., None], dim=-2)
+
+
+def _take_best(scores: torch.Tensor, *xs):
+    """The first maximum of ``scores`` (..., K) and the matching rows of
+    each (..., K, ...) tensor in ``xs``."""
+    best = torch.argmax(scores, dim=-1, keepdim=True)
+    out = [torch.take_along_dim(scores, best, dim=-1)[..., 0]]
+    for x in xs:
+        b = best.reshape(best.shape + (1,) * (x.dim() - best.dim()))
+        out.append(torch.take_along_dim(x, b, dim=best.dim() - 1)
+                   .squeeze(best.dim() - 1))
+    return out
 
 
 def sim3_ransac_core(idx, pts1, pts2, valid, repro1, repro2, vis1, vis2,
                      chi1, chi2, kind1, params1, kind2, params2,
                      dof: str, fix_scale: bool):
-    """Every hypothesis of the (K, 3) index bank ``idx`` at once: Horn
+    """Every hypothesis of the (..., K, 3) index bank ``idx`` at once: Horn
     solves, the symmetric chi2-gated reprojection inlier count
-    (loop_ransac.cpp:198-254), argmax winner. Returns (count, R12, t12,
-    s12, inliers) as tensors on the device."""
-    s1 = pts1[idx].transpose(-1, -2)                 # (K, 3, 3) columns
-    s2 = pts2[idx].transpose(-1, -2)
+    (loop_ransac.cpp:198-254), argmax winner (the first on a tie). Point
+    tensors are (..., N, ...). Returns (count, R12, t12, s12, inliers) as
+    tensors on the device."""
+    s1 = gather_rows(pts1, idx).transpose(-1, -2)    # (..., K, 3, 3) columns
+    s2 = gather_rows(pts2, idx).transpose(-1, -2)
     solver = compute_rot_z if dof == "ZROT" else compute_sim3
     R21, t21, s21 = solver(s1, s2)
     if fix_scale:
         s21 = torch.ones_like(s21)
     s12 = 1.0 / s21
     R12 = R21.transpose(-1, -2)
-    t12 = -s12[:, None] * torch.einsum("kij,kj->ki", R12, t21)
+    t12 = -s12[..., None] * torch.einsum("...kij,...kj->...ki", R12, t21)
 
     # project pts1 into cam2 under (s21 R21, t21) and pts2 into cam1 under
     # (s12 R12, t12)
-    p1_in_2 = (torch.einsum("kij,nj->kni", R21 * s21[:, None, None], pts1)
-               + t21[:, None, :])                    # (K, N, 3)
-    p2_in_1 = (torch.einsum("kij,nj->kni", R12 * s12[:, None, None], pts2)
-               + t12[:, None, :])
+    p1_in_2 = (torch.einsum("...kij,...nj->...kni", R21 * s21[..., None, None],
+                            pts1) + t21[..., None, :])      # (..., K, N, 3)
+    p2_in_1 = (torch.einsum("...kij,...nj->...kni", R12 * s12[..., None, None],
+                            pts2) + t12[..., None, :])
     proj1_in_2, v12 = camera_ops.project(kind2, params2, p1_in_2)
     proj2_in_1, v21 = camera_ops.project(kind1, params1, p2_in_1)
-    err2 = torch.sum((proj1_in_2 - repro2[None]) ** 2, dim=-1)  # (K, N)
-    err1 = torch.sum((proj2_in_1 - repro1[None]) ** 2, dim=-1)
-    ok = (valid[None] & vis1[None] & vis2[None] & v12 & v21
-          & (err2 < chi2[None]) & (err1 < chi1[None]))
-    counts = torch.sum(ok, dim=1)                    # (K,)
-    best = torch.argmax(counts)
-    return counts[best], R12[best], t12[best], s12[best], ok[best]
+    err2 = torch.sum((proj1_in_2 - repro2[..., None, :, :]) ** 2, dim=-1)
+    err1 = torch.sum((proj2_in_1 - repro1[..., None, :, :]) ** 2, dim=-1)
+    e = lambda x: x[..., None, :]
+    ok = (e(valid) & e(vis1) & e(vis2) & v12 & v21
+          & (err2 < e(chi2)) & (err1 < e(chi1)))
+    counts = torch.sum(ok, dim=-1)                   # (..., K)
+    return _take_best(counts, R12, t12, s12, ok)
 
 
 class Sim3Ransac:
@@ -363,3 +390,153 @@ def sim3_ransac_host(camera1, camera2, pts1_cam, pts2_cam,
     num = int(counts[best])
     return Sim3RansacResult(num >= min_inliers, R12[best], t12[best],
                             float(s12[best]), ok[best], num)
+
+
+# ---------------------------------------------------------------------------
+# Essential matrix: 8-point solver + RANSAC
+# ---------------------------------------------------------------------------
+
+ESSENTIAL_RESIDUAL_COS_THR = 0.01745240643  # 1 degree, essential_solver.cc:174
+_W = ((0.0, -1.0, 0.0), (1.0, 0.0, 0.0), (0.0, 0.0, 1.0))
+
+
+def compute_E_8pt(b1: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """Essential matrix from >= 8 bearing pairs (..., N, 3), batched
+    (reference: essential_solver.cc:87-118): the nullspace of the stacked
+    constraint matrix from a 9x9 ``eigh``, then the rank-2 projection from a
+    3x3 SVD. Its sign is free."""
+    A = torch.cat([b2[..., 0:1] * b1, b2[..., 1:2] * b1, b2[..., 2:3] * b1],
+                  dim=-1)                                   # (..., N, 9)
+    _, vecs = torch.linalg.eigh(A.transpose(-1, -2) @ A)
+    E_init = vecs[..., :, 0].reshape(vecs.shape[:-2] + (3, 3))
+    U, s, Vh = torch.linalg.svd(E_init)
+    s = s * torch.tensor([1.0, 1.0, 0.0], dtype=s.dtype, device=s.device)
+    return (U * s[..., None, :]) @ Vh
+
+
+def _essential_residuals(E_21: torch.Tensor, b1: torch.Tensor,
+                         b2: torch.Tensor):
+    """Symmetric epipolar cosine residuals (essential_solver.cc:164-215) of
+    E_21 (..., 3, 3) over bearings (..., N, 3): ((..., N), (..., N))."""
+    ep2 = b1 @ E_21.transpose(-1, -2)          # epiplane of each b1 in cam2
+    r2 = torch.abs(torch.sum(ep2 * b2, dim=-1)) / torch.clamp(
+        torch.linalg.norm(ep2, dim=-1), min=1e-12)
+    ep1 = b2 @ E_21                             # E_12 = E_21^T
+    r1 = torch.abs(torch.sum(ep1 * b1, dim=-1)) / torch.clamp(
+        torch.linalg.norm(ep1, dim=-1), min=1e-12)
+    return r1, r2
+
+
+def essential_ransac_core(idx: torch.Tensor, b1: torch.Tensor,
+                          b2: torch.Tensor, valid: torch.Tensor):
+    """Every hypothesis of the (..., K, 8) index bank ``idx`` at once over
+    bearings (..., N, 3) and match validity (..., N): 8-point solves, the
+    symmetric cosine score (the sum of r1 + r2 over a hypothesis's
+    inliers), argmax winner (the first on a tie). Returns (E_21, score,
+    inliers)."""
+    Es = compute_E_8pt(gather_rows(b1, idx), gather_rows(b2, idx))
+    r1, r2 = _essential_residuals(Es, b1[..., None, :, :], b2[..., None, :, :])
+    inl = ((r1 < ESSENTIAL_RESIDUAL_COS_THR) & (r2 < ESSENTIAL_RESIDUAL_COS_THR)
+           & valid[..., None, :])                           # (..., K, N)
+    scores = torch.sum(torch.where(inl, r1 + r2, torch.zeros_like(r1)), dim=-1)
+    score, E, inliers = _take_best(scores, Es, inl)
+    return E, score, inliers
+
+
+def decompose_E_device(E_21: torch.Tensor):
+    """E_21 (..., 3, 3) -> the 4 candidate (R, t): ((..., 4, 3, 3),
+    (..., 4, 3)), on the device (reference: essential_solver.cc:120-147;
+    the device twin of :func:`decompose_E`)."""
+    U, _, Vh = torch.linalg.svd(E_21)
+    t = U[..., :, 2]
+    t = t / torch.clamp(torch.linalg.norm(t, dim=-1, keepdim=True), min=1e-12)
+    W = torch.tensor(_W, dtype=E_21.dtype, device=E_21.device)
+
+    def proper(R):
+        neg = torch.linalg.det(R) < 0
+        return torch.where(neg[..., None, None], -R, R)
+    R1 = proper(U @ W @ Vh)
+    R2 = proper(U @ W.T @ Vh)
+    return (torch.stack([R1, R1, R2, R2], dim=-3),
+            torch.stack([t, -t, t, -t], dim=-2))
+
+
+def recover_pose_from_E(E_21: torch.Tensor, b1: torch.Tensor,
+                        b2: torch.Tensor, valid: torch.Tensor):
+    """The (R, t) of the 4 decompositions of E_21 (..., 3, 3) with the most
+    valid points in front of both cameras (the first on a tie; reference:
+    essential_solver.cc pose recovery via check_inliers on each candidate),
+    over bearings (..., N, 3). Returns (R_21, t_21, pts_cam1, ok)."""
+    Rs, ts = decompose_E_device(E_21)
+    pts4, ok4 = triangulate_two_view(Rs, ts, b1[..., None, :, :],
+                                     b2[..., None, :, :])
+    counts = torch.sum(ok4 & valid[..., None, :], dim=-1)   # (..., 4)
+    _, R, t, pts, ok = _take_best(counts, Rs, ts, pts4, ok4)
+    return R, t, pts, ok & valid
+
+
+class EssentialRansacResult(NamedTuple):
+    ok: bool
+    E_21: np.ndarray
+    inliers: np.ndarray
+    score: float
+
+
+def essential_ransac(bearings_1: np.ndarray, bearings_2: np.ndarray,
+                     iterations: int = 100, seed: int = 94235682,
+                     recompute: bool = True,
+                     device="cuda") -> EssentialRansacResult:
+    """Find E_21 by RANSAC over bearing correspondences on ``device``
+    (reference: essential_solver.cc:11-85), then refit it on every inlier
+    in float64 NumPy on the host."""
+    from slam_tpu_torch.precision import pin_full_f32
+
+    n = len(bearings_1)
+    if n < 8:
+        return EssentialRansacResult(False, np.eye(3), np.zeros(n, bool), 0.0)
+    pin_full_f32()
+    put = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)
+    b1, b2 = put(bearings_1), put(bearings_2)
+    valid = torch.ones(n, dtype=torch.bool, device=b1.device)
+    idx = sample_hypotheses(valid, int(iterations), seed, 8)
+    E, score, inl = (t.cpu().numpy()
+                     for t in essential_ransac_core(idx, b1, b2, valid))
+    num = int(inl.sum())
+    ok = (float(score) > 0.0) and num >= 8
+    if ok and recompute:
+        # final all-inlier refit in f64 on host: one 9x9 eigh + 3x3 SVD
+        # (essential_solver.cc:71-84)
+        s1 = np.asarray(bearings_1, np.float64)[inl]
+        s2 = np.asarray(bearings_2, np.float64)[inl]
+        A = np.concatenate([s2[:, 0:1] * s1, s2[:, 1:2] * s1,
+                            s2[:, 2:3] * s1], axis=1)
+        _, vecs = np.linalg.eigh(A.T @ A)
+        U, s, Vt = np.linalg.svd(vecs[:, 0].reshape(3, 3))
+        s[2] = 0.0
+        E = (U * s[None, :]) @ Vt
+        ep2 = np.asarray(bearings_1) @ E.T
+        r2 = np.abs(np.sum(ep2 * bearings_2, axis=1)) / np.maximum(
+            np.linalg.norm(ep2, axis=1), 1e-12)
+        ep1 = np.asarray(bearings_2) @ E
+        r1 = np.abs(np.sum(ep1 * bearings_1, axis=1)) / np.maximum(
+            np.linalg.norm(ep1, axis=1), 1e-12)
+        inl = ((r1 < ESSENTIAL_RESIDUAL_COS_THR)
+               & (r2 < ESSENTIAL_RESIDUAL_COS_THR))
+    return EssentialRansacResult(ok, np.asarray(E, np.float64),
+                                 np.asarray(inl), float(score))
+
+
+def decompose_E(E_21: np.ndarray):
+    """E -> 4 candidate (R, t) pairs on the host (reference:
+    essential_solver.cc:120-147)."""
+    U, _, Vt = np.linalg.svd(E_21)
+    t = U[:, 2]
+    t = t / np.linalg.norm(t)
+    W = np.array(_W)
+    R1 = U @ W @ Vt
+    if np.linalg.det(R1) < 0:
+        R1 = -R1
+    R2 = U @ W.T @ Vt
+    if np.linalg.det(R2) < 0:
+        R2 = -R2
+    return [R1, R1, R2, R2], [t, -t, t, -t]

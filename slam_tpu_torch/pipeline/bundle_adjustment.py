@@ -624,7 +624,10 @@ def pose_bundle_adjust(keyframe: Keyframe, map_db: MapDB,
 def global_bundle_adjust(current_kf_id: KfId, map_db: MapDB,
                          settings: StaticSettings, *, device) -> None:
     """reference: bundle_adjuster.cpp:493-604. The solve runs on
-    ``device``."""
+    ``device``. Unlike the JAX package, it leaves out a track's map point
+    that was never triangulated: it waits at the origin, and its
+    observations' huge residuals made the f32 solve accept steps that
+    moved every keyframe."""
     parameters = settings.parameters.slam
     builder = _ProblemBuilder(settings, device)
     for kf_id in sorted(map_db.keyframes):
@@ -632,12 +635,16 @@ def global_bundle_adjust(current_kf_id: KfId, map_db: MapDB,
         builder.add_keyframe(map_db.keyframes[kf_id], fixed=(kf_id == current_kf_id))
     for mp_id in sorted(map_db.map_points):
         mp = map_db.map_points[mp_id]
-        if not mp.observations:
+        if not mp.observations or (
+                mp.status == MapPointStatus.NOT_TRIANGULATED
+                and not np.any(mp.position)):
             continue
         builder.add_map_point(mp, fixed=False)
     for kf_id in sorted(map_db.keyframes):
         kf = map_db.keyframes[kf_id]
-        sel = np.where(kf.map_points >= 0)[0]
+        sel = np.array([i for i in np.flatnonzero(kf.map_points >= 0)
+                        if MpId(int(kf.map_points[i])) in builder.mp_slot],
+                       np.int64)
         if len(sel) == 0:
             continue
         mp_ids = [MpId(int(v)) for v in kf.map_points[sel]]

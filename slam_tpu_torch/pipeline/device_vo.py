@@ -844,6 +844,15 @@ def _merge_duplicates(st: VOState, on, cf, cslot, radius: float) -> VOState:
                        wobs_meas=wobs_meas, wobs_valid=wobs_valid)
 
 
+def _cat_shards(parts, device):
+    """Concatenate per-shard NamedTuples of tensors along the batch on
+    ``device`` (one shard: returned as it is)."""
+    if len(parts) == 1:
+        return parts[0]
+    return type(parts[0])(*(torch.cat([t.to(device) for t in ts])
+                            for ts in zip(*parts)))
+
+
 def loop_candidates(out: VOStepOut, frame_offset: int = 0) -> np.ndarray:
     """(N, 4) rows [sequence, query_frame, candidate_frame, score] for every
     frame of one ``advance`` output that reported a candidate.
@@ -930,36 +939,78 @@ def state_to_numpy(state: VOState) -> dict:
 
 class BatchedDeviceVO:
     """S sequences x T frames per ``advance``; the state stays on
-    ``device`` between calls."""
+    ``device`` between calls.
+
+    Multi-device: pass ``mesh`` (``parallel/mesh.make_mesh``; its first
+    axis is the data axis) to split the S sequences over its devices. Each
+    shard keeps its own state on its device; ``advance`` enqueues every
+    shard's frames before it waits on any and concatenates the outputs on
+    the first shard's device, which is then ``self.device``. Sequences are
+    independent, so no cross-device math is needed. ``state`` reads back
+    as one :class:`VOState` and takes one when set, so ``DeviceSlam`` and
+    the checkpoints see no difference."""
 
     def __init__(self, cfg: DeviceVOConfig, batch: int, camera=None,
-                 settings: Optional[StaticSettings] = None, device="cuda"):
+                 settings: Optional[StaticSettings] = None, device="cuda",
+                 mesh=None):
         self.cfg = cfg
         self.batch = batch
-        self.device = torch.device(device)
+        if mesh is None:
+            shard_devices = [torch.device(device)]
+        else:
+            from slam_tpu_torch.parallel.mesh import batch_sharding
+
+            axis = mesh.axis_names[0]
+            assert batch % mesh.shape[axis] == 0, (
+                f"batch {batch} not divisible by mesh axis "
+                f"'{axis}'={mesh.shape[axis]}")
+            shard_devices = batch_sharding(mesh, axis).devices
+        self.shard_devices = shard_devices
+        self.device = shard_devices[0]
         camera = _resolve_camera(cfg, camera)
         settings = _resolve_settings(cfg, settings)
         if cfg.window:
             assert cfg.window >= 2, "window needs >= 2 frames"
             assert cfg.window_ba_every >= 1
-        self._step, spec = make_vo_step(cfg, camera=camera, settings=settings,
-                                        device=self.device)
+        # one step per distinct device: the step holds its constants there
+        self._steps = {}
+        for dev in shard_devices:
+            if dev not in self._steps:
+                self._steps[dev], spec = make_vo_step(
+                    cfg, camera=camera, settings=settings, device=dev)
         self.num_slots = N_TRACKED + sum(spec.budgets)
         self._focal = float(pack_camera(camera)[1][0])
         self.reset()
 
+    @property
+    def state(self) -> VOState:
+        """The whole batch's state (on ``self.device``)."""
+        return _cat_shards(self._shards, self.device)
+
+    @state.setter
+    def state(self, state: VOState) -> None:
+        n = len(self.shard_devices)
+        parts = zip(*(torch.chunk(t, n) for t in state))
+        self._shards = [VOState(*(t.to(dev) for t in part))
+                        for part, dev in zip(parts, self.shard_devices)]
+
     def reset(self, poses0_cw: Optional[np.ndarray] = None):
         """Re-initialize all sequence states, optionally at (S, 4, 4)
         world->camera start poses."""
-        self.state = init_state(self.cfg, self.num_slots, self.batch,
-                                self.device)
+        n = len(self.shard_devices)
+        self._shards = [init_state(self.cfg, self.num_slots, self.batch // n,
+                                   dev) for dev in self.shard_devices]
         if poses0_cw is not None:
-            p = torch.as_tensor(np.asarray(poses0_cw, np.float32),
-                                device=self.device)
-            self.state = self.state._replace(pose_cw=p, prev_pose_cw=p.clone())
+            p = torch.as_tensor(np.asarray(poses0_cw, np.float32))
+            for i, (part, dev) in enumerate(zip(torch.chunk(p, n),
+                                                self.shard_devices)):
+                part = part.to(dev)
+                self._shards[i] = self._shards[i]._replace(
+                    pose_cw=part, prev_pose_cw=part.clone())
         self.last_snaps = None
 
-    def _chunk_snaps(self, f0: torch.Tensor, T: int) -> Optional[SnapOut]:
+    def _chunk_snaps(self, st: VOState, f0: torch.Tensor,
+                     T: int) -> Optional[SnapOut]:
         """Ring rows stored during the chunk: the multiples of loop_every in
         [f0, f0 + T), exactly T // loop_every of them."""
         cfg = self.cfg
@@ -972,7 +1023,6 @@ class BatchedDeviceVO:
         first = torch.div(f0 + le - 1, le, rounding_mode="floor")
         idx = first[:, None] + torch.arange(T // le, device=f0.device)
         slots = torch.remainder(idx, cfg.loop_slots).to(torch.int64)
-        st = self.state
         return SnapOut(slot=slots, frame=take(st.sig_frame, slots),
                        pc=take(st.sig_pc, slots), desc=take(st.sig_desc, slots),
                        obs=take(st.sig_obs, slots),
@@ -984,23 +1034,36 @@ class BatchedDeviceVO:
         """images: (S, T, H, W) uint8; odom_deltas: (S, T, 4, 4). Returns
         per-frame outputs stacked to (S, T, ...). With loop detection on,
         the ring rows stored during the chunk are in ``self.last_snaps``."""
-        images = torch.as_tensor(images, device=self.device)
-        odom = torch.as_tensor(np.asarray(odom_deltas, np.float32),
-                               device=self.device)
-        T = images.shape[1]
+        n = len(self.shard_devices)
+        images = torch.chunk(torch.as_tensor(images), n)
+        odom = torch.chunk(torch.as_tensor(np.asarray(odom_deltas,
+                                                      np.float32)), n)
+        images = [x.to(d) for x, d in zip(images, self.shard_devices)]
+        odom = [x.to(d) for x, d in zip(odom, self.shard_devices)]
+        T = images[0].shape[1]
         G = self.cfg.window_ba_every
         if self.cfg.window > 0:
             assert T % G == 0, (
                 f"chunk length {T} not divisible by window_ba_every={G}")
-        f0 = self.state.frame_idx
-        outs = []
+        f0 = [st.frame_idx for st in self._shards]
+        outs = [[] for _ in range(n)]
+        # frame by frame across the shards: every shard's work is enqueued
+        # before any result is read
         for t in range(T):
-            self.state, out = self._step(self.state, images[:, t], odom[:, t])
-            outs.append(out)
-            if self.cfg.window > 0 and (t + 1) % G == 0:
-                self.state = _window_ba(self.state, self.cfg, self._focal)
-        self.last_snaps = self._chunk_snaps(f0, T)
-        return VOStepOut(*(torch.stack(x, dim=1) for x in zip(*outs)))
+            for i, dev in enumerate(self.shard_devices):
+                self._shards[i], out = self._steps[dev](
+                    self._shards[i], images[i][:, t], odom[i][:, t])
+                outs[i].append(out)
+                if self.cfg.window > 0 and (t + 1) % G == 0:
+                    self._shards[i] = _window_ba(self._shards[i], self.cfg,
+                                                 self._focal)
+        snaps = [self._chunk_snaps(st, f, T)
+                 for st, f in zip(self._shards, f0)]
+        per_shard = [VOStepOut(*(torch.stack(x, dim=1) for x in zip(*o)))
+                     for o in outs]
+        self.last_snaps = None if snaps[0] is None else _cat_shards(
+            snaps, self.device)
+        return _cat_shards(per_shard, self.device)
 
     def save_state(self, path: str) -> None:
         """Checkpoint the session state to an ``.npz`` with the JAX

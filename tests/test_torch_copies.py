@@ -20,7 +20,9 @@ COPIES = ["ids.py", "utils/timer.py", "utils/stats.py", "utils/commands.py",
           "map/__init__.py", "map/feature_search.py", "map/mp_store.py",
           "map/map_point.py", "map/keyframe.py", "map/mapdb.py",
           "map/serialization.py", "ops/matching.py", "pipeline/adjacency.py",
-          "params.py", "geometry/camera.py", "geometry/se3.py"]
+          "params.py", "geometry/camera.py", "geometry/se3.py",
+          "utils/viewer.py", "utils/viz2d.py", "frontends/__init__.py",
+          "parallel/__init__.py"]
 
 # native/__init__.py: the build location and how it is keyed
 NATIVE_BUILD_NAMES = {"_LIB_PATH", "_FLAGS", "_BUILD_DIR", "_cpu_model",

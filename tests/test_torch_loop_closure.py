@@ -17,7 +17,8 @@ the port takes it (ROADMAP section 3). From there the maps differ by a
 few map points and each package closes its own loop: the JAX package
 (10, 70), the port (3, 63). For the rest of the session the test holds the
 port to what both must do: one closure, a lap apart, a consistent map and
-a final pose near the truth. Slow: about ninety seconds."""
+a final pose near the truth, and the port's viewer modules render and
+export the closure. Slow: about ninety seconds."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -107,6 +108,28 @@ class TestLoopClosure:
                              - jse3.camera_center(
                                  world.poses_cw[int(final.id)]))
         assert err < 0.2, err
+
+        # the viewer's view of the closed loop (tests/test_loop_closure.py
+        # :125-139): the orthographic render shows the closure edge, and
+        # the JSON export carries it
+        import json
+        import tempfile
+
+        from slam_tpu_torch.utils import viz2d
+        from slam_tpu_torch.utils.viewer import ViewerDataPublisher
+
+        img = viz2d.render_map_orthographic(tm.map_db)
+        lc = np.array(viz2d.COLOR_LOOP_EDGE, np.uint8)
+        assert (img == lc).all(axis=-1).any(), \
+            "loop-closure edge color not present in the map render"
+        with tempfile.TemporaryDirectory() as d:
+            viz2d.write_png(f"{d}/loop_map.png", img)
+            pub = ViewerDataPublisher()
+            pub.publish_map(tm.map_db, None, ParametersSlam(**LOOP))
+            pub.dump_json(f"{d}/map.json")
+            with open(f"{d}/map.json") as f:
+                exported = json.load(f)
+            assert len(exported["loopClosureEdges"]) >= 1
         assert tm.end("")
 
     def test_no_false_loop_on_line(self):

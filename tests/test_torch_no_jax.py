@@ -29,7 +29,12 @@ assert {"slam_tpu_torch.pipeline.device_slam",
         "slam_tpu_torch.pipeline.loop_closer",
         "slam_tpu_torch.ops.sim3_opt", "slam_tpu_torch.pipeline.slam_api",
         "slam_tpu_torch.pipeline.mapper", "slam_tpu_torch.native",
-        "slam_tpu_torch.map.mapdb"} <= set(names), names
+        "slam_tpu_torch.map.mapdb",
+        "slam_tpu_torch.frontends.descriptor_tracker",
+        "slam_tpu_torch.parallel.batch", "slam_tpu_torch.parallel.mesh",
+        "slam_tpu_torch.parallel.multichip", "slam_tpu_torch.utils.profiling",
+        "slam_tpu_torch.utils.viewer", "slam_tpu_torch.utils.viz2d"
+        } <= set(names), names
 import chip_smoke
 from slam_tpu_torch import DeviceSlam, DeviceSlamParams
 from slam_tpu_torch.pipeline.device_vo import DeviceVOConfig
@@ -75,6 +80,13 @@ assert all(f.result().pose_mat.shape == (4, 4) for f in futures)
 assert session.end().result()
 assert session.mapper.map_db.keyframes
 assert session.mapper._orb_extractor.extractions >= 1
+# the multi-device update step over two CPU devices
+from slam_tpu_torch.parallel.mesh import make_mesh
+from slam_tpu_torch.parallel.multichip import build_update_step
+step = build_update_step(make_mesh(2, devices=["cpu", "cpu"]), 96, 80,
+                         hypotheses=8, ba_capacity=8)
+mc = step(rng.integers(0, 256, (2, 80, 96)).astype(np.float32))
+assert bool(torch.isfinite(mc.ba_cost).all())
 for pkg in ("jax", "slam_tpu"):
     loaded = [m for m in sys.modules if m == pkg or m.startswith(pkg + ".")]
     assert loaded == [pkg] and sys.modules[pkg] is None, loaded
@@ -101,7 +113,8 @@ def _port_files():
                                                            "slam_tpu_torch"))
              for name in names if name.endswith(".py")]
     return sorted(files) + [os.path.join(ROOT, "chip_smoke.py"),
-                            os.path.join(ROOT, "tools", "profile_torch_vo.py")]
+                            os.path.join(ROOT, "tools", "profile_torch_vo.py"),
+                            os.path.join(ROOT, "tools", "torch_seed_spread.py")]
 
 
 def test_port_files_import_nothing_of_slam_tpu():
