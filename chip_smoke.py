@@ -25,8 +25,14 @@ limit against the CPU, and the card's segment sums bit-equal to the CPU's;
 concurrent sessions through ``parallel/batch.map_sequences``;
 ``BatchedDeviceVO(mesh=)`` on a mesh that lists the card twice, under
 ``utils/profiling.device_trace``; and ``parallel/multichip``'s update step.
-Any failed check raises, so the exit code is non-zero. Without a CUDA card
-it exits non-zero before printing any result.
+Last the rendered-sequence tools (``tools/torch_*.py``) as a user runs them:
+the EuRoC-class room through ``DescriptorTracker`` and ``Mapper`` (a
+closure, SLAM ATE below the odometry's, a consistent map), the device VO
+on the room (ATE below the odometry's) and a cut KITTI-class drive (a
+blackout, the map saved and reloaded as an atlas, relocation reaching the
+RANSAC stage); it prints its own wall. Any failed check raises, so the
+exit code is non-zero. Without a CUDA card it exits non-zero before
+printing any result.
 
 The last line of standard output is one JSON object:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
@@ -83,7 +89,23 @@ SESSIONS, SESSION_FRAMES = 4, 12
 # multi-device update step at the interactive path's width
 MC_PAIRS, MC_PARAMS = 8, dict(max_keypoints=600, hypotheses=128,
                               ba_capacity=256, ba_iterations=3)
-TRACE_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_trace"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+TRACE_DIR = BUILD_DIR / "chip_smoke_trace"
+# the rendered-sequence tools (tools/torch_*.py), driven as a user runs them
+TOOLS_DIR = Path(__file__).resolve().parent / "tools"
+# EuRoC-class room (BASELINE configs 3/4): the setting at which the JAX
+# package's tool closed its loop on both CPU and TPU (RESULTS.md:25-26)
+EUROC_FRAMES, EUROC_DRIFT = 240, 0.004
+# device VO on the room: the middle drift row of RESULTS.md:107-109
+DVO_FRAMES, DVO_SEQS, DVO_DRIFT, DVO_WINDOW = 120, 2, 0.008, 8
+# KITTI-class street (BASELINE config 5) cut to the small-circuit diagnostic
+# (RESULTS.md:91-92: radius 30 m, heading bias 1.2e-4 rad/frame) and to a
+# drive of 8 frames, the last 4 blacked out: one track reset, a saved map
+# and a relocation pass whose atlas candidates reach the RANSAC stage. On
+# the CPU 4 frames reached only BOW_MATCH, 6 frames sent 1 candidate to the
+# RANSAC stage and 8 frames 3
+KITTI_FRAMES, KITTI_RADIUS, KITTI_DRIFT_YAW = 8, 30.0, 1.2e-4
+KITTI_MAP = BUILD_DIR / "chip_smoke_kitti.npz"
 
 
 def cuda_time_ms(fn, reps=20, warmup=3):
@@ -242,6 +264,10 @@ def phase_kernel(smi, peaks):
               ("interactive", 256 + IA_PARAMS["maxKeypoints"], vocab),
               # DescriptorTracker's extractor keeps 128 tracked slots
               ("tracker", 128 + IA_PARAMS["maxKeypoints"], vocab),
+              # the rendered-sequence tools at the default 1,000 keypoints:
+              # the tracker's extractor and the Mapper's (256 tracked slots)
+              ("tools tracker", 128 + 1000, vocab),
+              ("tools mapper", 256 + 1000, vocab),
               ("N=1", 1, _loop_codebook(512)),
               ("N=2433", 2433, _loop_codebook(512)),
               ("V=1", 300, rand(1)),
@@ -293,7 +319,9 @@ def phase_kernel(smi, peaks):
     # matmul of the +-1 expansions
     from slam_tpu_torch.ops.hamming import unpack_bits_pm1
     line = []
-    for label, n, cb in shapes[:3]:
+    for label, n, cb in shapes:
+        if n * len(cb) < 2 ** 20:             # the tiny edge shapes
+            continue
         a = unpack_bits_pm1(torch.from_numpy(
             _near_copies(rng, cb, n, 24).view(np.int32)).cuda()).bfloat16()
         b = unpack_bits_pm1(torch.from_numpy(
@@ -971,6 +999,127 @@ def phase_multichip(smi):
     return dict(ms=ms)
 
 
+def _tool(name):
+    """A ``tools/torch_*.py`` module, imported as its scripts import each
+    other."""
+    import importlib
+
+    if str(TOOLS_DIR) not in sys.path:
+        sys.path.insert(0, str(TOOLS_DIR))
+    return importlib.import_module(name)
+
+
+def _k1_counts_reset():
+    from slam_tpu_torch.ops import bow
+    from slam_tpu_torch.ops.hamming_argmin import hamming_argmin
+
+    torch.cuda.synchronize()
+    hamming_argmin.launches = 0
+    bow.quantize.device_calls = 0
+
+
+def _k1_counts(extractors):
+    """K1's launches since ``_k1_counts_reset``, held equal to the
+    extractions of ``extractors`` plus the device quantizations."""
+    from slam_tpu_torch.ops import bow
+    from slam_tpu_torch.ops.hamming_argmin import hamming_argmin
+
+    launches = hamming_argmin.launches
+    extractions = sum(ex.extractions for ex in extractors)
+    quantized = bow.quantize.device_calls
+    assert launches == extractions + quantized > 0, (launches, extractions,
+                                                     quantized)
+    return launches, extractions, quantized
+
+
+def phase_euroc_synthetic(smi):
+    """``tools/torch_run_euroc_synthetic.py``'s run on the card: 240 frames
+    of the EuRoC-class room at sigma 0.004 through ``DescriptorTracker`` and
+    ``Mapper``. At least one accepted closure, the SLAM trajectory's ATE
+    below the odometry's, a consistent map, and K1 launched once per
+    extraction (tracker and mapper) and device quantization."""
+    from slam_tpu_torch.pipeline.mapper_helpers import check_consistency
+
+    tool = _tool("torch_run_euroc_synthetic")
+    _k1_counts_reset()
+    t0 = time.perf_counter()
+    res, mapper, tracker = tool.drive(
+        n_frames=EUROC_FRAMES, drift=EUROC_DRIFT, seed=0, progress=False,
+        out=str(BUILD_DIR / "chip_smoke_euroc_traj.csv"),
+        device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, extractions, quantized = _k1_counts(
+        [tracker.extractor, mapper._orb_extractor])
+    check_consistency(mapper.map_db)
+    print(f"EuRoC-class room, {res['frames']} frames at 752x480, sigma "
+          f"{EUROC_DRIFT}: {res['keyframes']} keyframes, {res['map_points']} "
+          f"map points, {res['loop_closures']} closures; ATE SLAM "
+          f"{res['ate_slam_m']:.6f} m vs odometry {res['ate_odometry_m']:.6f} "
+          f"m; render {res['render_ms']:.1f}, track {res['track_ms']:.1f}, "
+          f"mapper {res['mapper_ms']:.1f} ms a frame; wall {wall:.1f} s; "
+          f"K1 launches {launches} = {extractions} extractions + "
+          f"{quantized} device quantizations; map consistent; on {smi}")
+    assert res["loop_closures"] >= 1, res
+    assert res["ate_slam_m"] < res["ate_odometry_m"], res
+    return dict(res, wall=wall, launches=launches)
+
+
+def phase_device_vo_room(smi):
+    """``tools/torch_run_device_vo_euroc.py``'s run on the card: two
+    sequences of 120 room frames at sigma 0.008 through ``BatchedDeviceVO``
+    with the window BA; its ATE below the odometry's."""
+    from slam_tpu_torch.ops.hamming_argmin import hamming_argmin
+
+    tool = _tool("torch_run_device_vo_euroc")
+    _k1_counts_reset()
+    res = tool.run(n_frames=DVO_FRAMES, n_sequences=DVO_SEQS,
+                   drift=DVO_DRIFT, window=DVO_WINDOW, progress=False,
+                   device="cuda")
+    launches = hamming_argmin.launches       # no retrieval: loop_every 0
+    print(f"device VO on the room, {DVO_SEQS} x {res['frames']} frames at "
+          f"752x480, sigma {DVO_DRIFT}, window {DVO_WINDOW}: ATE "
+          f"{res['ate_vo_m_mean']:.6f} m vs odometry "
+          f"{res['ate_odometry_m_mean']:.6f} m (per sequence "
+          f"{res['per_sequence']}); {res['vo_keyframes_per_sec']:.2f} "
+          f"keyframes/s; K1 launches {launches}; on {smi}")
+    assert res["ate_vo_m_mean"] < res["ate_odometry_m_mean"], res
+    return dict(res, launches=launches)
+
+
+def phase_kitti_relocation(smi):
+    """``tools/torch_run_kitti_synthetic.py`` on the card, cut to the small
+    circuit: a blackout with one track reset, the map saved, reloaded as an
+    atlas, and a relocation pass in which an atlas candidate reaches
+    ``RELOCATION_MAP_POINT_RANSAC``; K1 once per extraction and device
+    quantization of both sessions."""
+    tool = _tool("torch_run_kitti_synthetic")
+    _k1_counts_reset()
+    t0 = time.perf_counter()
+    res, _, sessions = tool.drive(
+        n_frames=KITTI_FRAMES, drift_yaw=KITTI_DRIFT_YAW, radius=KITTI_RADIUS,
+        blackout=(KITTI_FRAMES // 2, KITTI_FRAMES // 2 + 4), reloc=True,
+        progress=False, map_path=str(KITTI_MAP), device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, extractions, quantized = _k1_counts(
+        [ex for m, t in sessions for ex in (t.extractor, m._orb_extractor)])
+    reloc = res["relocation"]
+    print(f"KITTI-class street, {KITTI_FRAMES} frames at 1241x376 (radius "
+          f"{KITTI_RADIUS} m, heading bias {KITTI_DRIFT_YAW}): "
+          f"{res['keyframes']} keyframes, {res['map_points']} map points, "
+          f"{res['loop_closures']} closures, {res['track_resets']} track "
+          f"resets; ATE SLAM {res['ate_slam_m']:.6f} m vs odometry "
+          f"{res['ate_odometry_m']:.6f} m; loop stats {res['loop_stats']}; "
+          f"relocation {reloc}; wall {wall:.1f} s; K1 launches {launches} = "
+          f"{extractions} extractions + {quantized} device quantizations; "
+          f"on {smi}")
+    assert res["track_resets"] == 1, res["track_resets"]
+    assert reloc["atlas_keyframes"] == res["keyframes"], reloc
+    assert reloc["stages"].get("RELOCATION_MAP_POINT_RANSAC", 0) >= 1, reloc
+    return dict(res, wall=wall, launches=launches)
+
+
 def phase_frontend(images):
     """Frame 0 of every sequence through the front-end on CPU (the plain
     path) and on the card."""
@@ -1006,6 +1155,7 @@ def phase_frontend(images):
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this check runs only on a card")
+    t_start = time.perf_counter()
     name, smi = phase_device()
     build_kernels()
     kernel = phase_kernel(smi, mma_peaks(smi))
@@ -1023,8 +1173,13 @@ def main():
     sessions = phase_sessions(make_session_inputs(), smi)
     phase_mesh(cam, worlds, images, deltas, smi)
     phase_multichip(smi)
+    euroc = phase_euroc_synthetic(smi)
+    dvo = phase_device_vo_room(smi)
+    kitti = phase_kitti_relocation(smi)
+    print(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s, kernel "
+          f"builds included; on {smi}")
     k, voc = kernel["main path"], kernel["vocabulary"]
-    ia = kernel["interactive"]
+    ia, tt = kernel["interactive"], kernel["tools tracker"]
     print(json.dumps({"kernels": [{
         "name": "hamming_argmin", "route": "cuda",
         "source": "slam_tpu_torch/csrc/hamming_argmin.cu",
@@ -1040,7 +1195,12 @@ def main():
         "interactive_ms": ia["ms"], "interactive_plain_ms": ia["plain_ms"],
         "interactive_bound_ms": ia["bound_ms"],
         "tracker_launches": tracker["launches"],
-        "sessions_launches": sessions["launches"]}]}))
+        "sessions_launches": sessions["launches"],
+        "tools_launches": (euroc["launches"] + dvo["launches"]
+                           + kitti["launches"]),
+        "tools_tracker_ms": tt["ms"], "tools_tracker_plain_ms": tt["plain_ms"],
+        "tools_tracker_bound_ms": tt["bound_ms"],
+        "tools_tracker_matmul_ms": tt["matmul_ms"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -368,28 +368,45 @@ def pick_cg_iters(n_poses_padded: int, n_points_padded: int) -> int:
 HUBER_DELTA = math.sqrt(CHI2_THRESHOLD)
 
 
+def _f64(p: BAProblem) -> BAProblem:
+    """The problem with its float fields in f64. A point that one keyframe
+    observes gives a rank-2 3x3 block; damped by lambda it is near-singular
+    (condition up to 2e9), and an f32 LM builds its Schur complement and
+    steps from noise that depends on the device's rounding
+    (``tools/trace_euroc_ba.py --replay-kf K`` solves one local BA of the
+    EuRoC-class room both ways on the card and the CPU)."""
+    return BAProblem(*(t.double() if t.is_floating_point() else t
+                       for t in p))
+
+
+def _as_dtype(res: BAResult, dtype: torch.dtype) -> BAResult:
+    return BAResult(*(t.to(dtype) if t.is_floating_point() else t
+                      for t in res))
+
+
 def solve_ba(p: BAProblem, iterations: int, cg_iters: int,
              huber_delta: float = HUBER_DELTA,
              init_lambda: float = 1e-4) -> BAResult:
-    """One LM solve in full f32."""
+    """One LM solve, run in f64 (``_f64``) and returned in the problem's
+    dtype."""
     pin_full_f32()
-    return lm_run(p, iterations, cg_iters, huber_delta, init_lambda)
+    return _as_dtype(lm_run(_f64(p), iterations, cg_iters, huber_delta,
+                            init_lambda), p.poses.dtype)
 
 
-def solve_ba_two_stage(p: BAProblem, stage2_pose_fixed: torch.Tensor,
-                       anchor_slot: torch.Tensor,
-                       anchor_sqrt_info: torch.Tensor,
-                       iterations: int, cg_iters: int,
-                       huber_delta: float = HUBER_DELTA,
-                       init_lambda: float = 1e-4) -> BAResult:
+def two_stage_lm(p: BAProblem, stage2_pose_fixed: torch.Tensor,
+                 anchor_slot: torch.Tensor, anchor_sqrt_info: torch.Tensor,
+                 iterations: int, cg_iters: int,
+                 huber_delta: float = HUBER_DELTA,
+                 init_lambda: float = 1e-4) -> BAResult:
     """Local BA's two-stage schedule (reference:
-    bundle_adjuster.cpp:321-373), batched over S.
+    bundle_adjuster.cpp:321-373), batched over S, in the problem's dtype
+    (as ``lm_run``).
 
     Stage 1 runs with ``p.pose_fixed`` (all but the current keyframe
     fixed); stage 2 unfixes per ``stage2_pose_fixed`` (S, K) and softly
     anchors the stage-1 pose of keyframe ``anchor_slot`` (S,) with the
     unary prior ``anchor_sqrt_info`` (S, 6, 6)."""
-    pin_full_f32()
     res1 = lm_run(p, iterations, cg_iters, huber_delta, init_lambda)
     slot = anchor_slot.to(torch.int64)[:, None]
     S = slot.shape[0]
@@ -399,7 +416,21 @@ def solve_ba_two_stage(p: BAProblem, stage2_pose_fixed: torch.Tensor,
         pose_fixed=stage2_pose_fixed,
         pr_idx=slot,
         pr_meas=take(res1.poses, slot),
-        pr_sqrt_info=anchor_sqrt_info[:, None],
+        pr_sqrt_info=anchor_sqrt_info.to(p.poses.dtype)[:, None],
         pr_valid=torch.ones((S, 1), dtype=torch.bool,
                             device=slot.device))
     return lm_run(p2, iterations, cg_iters, huber_delta, init_lambda)
+
+
+def solve_ba_two_stage(p: BAProblem, stage2_pose_fixed: torch.Tensor,
+                       anchor_slot: torch.Tensor,
+                       anchor_sqrt_info: torch.Tensor,
+                       iterations: int, cg_iters: int,
+                       huber_delta: float = HUBER_DELTA,
+                       init_lambda: float = 1e-4) -> BAResult:
+    """``two_stage_lm`` run in f64 (``_f64``) and returned in the
+    problem's dtype."""
+    pin_full_f32()
+    return _as_dtype(two_stage_lm(_f64(p), stage2_pose_fixed, anchor_slot,
+                                  anchor_sqrt_info, iterations, cg_iters,
+                                  huber_delta, init_lambda), p.poses.dtype)

@@ -620,6 +620,14 @@ def pose_bundle_adjust(keyframe: Keyframe, map_db: MapDB,
     return True
 
 
+def never_triangulated(mp: MapPoint) -> bool:
+    """A track's map point that was never triangulated: NOT_TRIANGULATED
+    with no position (it waits at the origin). The global BA leaves it out
+    and the loop correction does not move it."""
+    return (mp.status == MapPointStatus.NOT_TRIANGULATED
+            and not np.any(mp.position))
+
+
 @timed
 def global_bundle_adjust(current_kf_id: KfId, map_db: MapDB,
                          settings: StaticSettings, *, device) -> None:
@@ -635,9 +643,7 @@ def global_bundle_adjust(current_kf_id: KfId, map_db: MapDB,
         builder.add_keyframe(map_db.keyframes[kf_id], fixed=(kf_id == current_kf_id))
     for mp_id in sorted(map_db.map_points):
         mp = map_db.map_points[mp_id]
-        if not mp.observations or (
-                mp.status == MapPointStatus.NOT_TRIANGULATED
-                and not np.any(mp.position)):
+        if not mp.observations or never_triangulated(mp):
             continue
         builder.add_map_point(mp, fixed=False)
     for kf_id in sorted(map_db.keyframes):

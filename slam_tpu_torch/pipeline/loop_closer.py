@@ -27,6 +27,7 @@ from slam_tpu_torch.ops.ransac import Sim3Ransac
 from slam_tpu_torch.ops.sim3_opt import optimize_sim3_transform
 from slam_tpu_torch.params import StaticSettings
 from slam_tpu_torch.pipeline import matcher
+from slam_tpu_torch.pipeline.bundle_adjustment import never_triangulated
 from slam_tpu_torch.pipeline.mapper_helpers import triangulate_map_points
 from slam_tpu_torch.pipeline.relocation import try_relocation
 from slam_tpu_torch.utils.stats import Loop, LoopCloserStats
@@ -49,6 +50,26 @@ def _next_valid_kf_id(kf_id: KfId, map_db: MapDB) -> KfId:
             return kf_id
         kf_id = KfId(int(kf_id) + 1)
     return KfId(-1)
+
+
+def reexpress_map_points(map_db: MapDB, local_map_points: Dict[MpId, KfId],
+                         prev_poses: Dict[KfId, np.ndarray],
+                         settings: StaticSettings) -> None:
+    """Move each map point with its reference keyframe's correction, from
+    ``prev_poses`` to the keyframe's corrected pose (loop_closer.cpp:
+    492-506). A track's point that was never triangulated has no position
+    to move: it stays at the origin, where the global BA leaves it out.
+    The JAX package moves it too, to the correction's translation, and its
+    global BA then takes it in."""
+    for mp_id, ref_kf in local_map_points.items():
+        mp = map_db.map_points.get(mp_id)
+        if mp is None or never_triangulated(mp):
+            continue
+        corrected_cw = se3.Sim3.from_se3(map_db.keyframes[ref_kf].pose_cw)
+        previous_cw = se3.Sim3.from_se3(prev_poses[ref_kf])
+        mp.position = (corrected_cw.inverse() * previous_cw).map(mp.position)
+        mp.update_descriptor(map_db)
+        mp.update_distance_and_norm(map_db, settings)
 
 
 class LoopCloser:
@@ -341,17 +362,8 @@ class LoopCloser:
             kf_id1=candidate_kf.id, kf_id2=current_kf.id,
             pose_diff=candidate_kf.pose_cw @ np.linalg.inv(current_kf.pose_cw)))
 
-        # re-express map points relative to their reference keyframes
-        # (loop_closer.cpp:492-506)
-        for mp_id, ref_kf in local_map_points.items():
-            mp = map_db.map_points.get(mp_id)
-            if mp is None:
-                continue
-            corrected_cw = se3.Sim3.from_se3(map_db.keyframes[ref_kf].pose_cw)
-            previous_cw = se3.Sim3.from_se3(prev_poses[ref_kf])
-            mp.position = (corrected_cw.inverse() * previous_cw).map(mp.position)
-            mp.update_descriptor(map_db)
-            mp.update_distance_and_norm(map_db, self.settings)
+        reexpress_map_points(map_db, local_map_points, prev_poses,
+                             self.settings)
 
         # global retriangulation (loop_closer.cpp:509-527), batched
         triangulate_map_points(map_db, list(map_db.map_points.values()),

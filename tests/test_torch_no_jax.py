@@ -36,6 +36,12 @@ assert {"slam_tpu_torch.pipeline.device_slam",
         "slam_tpu_torch.utils.viewer", "slam_tpu_torch.utils.viz2d"
         } <= set(names), names
 import chip_smoke
+# the port's tools, with every original tool and bench.py blocked too
+for name in ORIGINAL_TOOLS:
+    sys.modules[name] = None
+sys.path.insert(0, "tools")
+for name in TOOL_TWINS:
+    importlib.import_module(name)
 from slam_tpu_torch import DeviceSlam, DeviceSlamParams
 from slam_tpu_torch.pipeline.device_vo import DeviceVOConfig
 torch.set_num_threads(1)
@@ -87,11 +93,25 @@ step = build_update_step(make_mesh(2, devices=["cpu", "cpu"]), 96, 80,
                          hypotheses=8, ba_capacity=8)
 mc = step(rng.integers(0, 256, (2, 80, 96)).astype(np.float32))
 assert bool(torch.isfinite(mc.ba_cost).all())
-for pkg in ("jax", "slam_tpu"):
+for pkg in ("jax", "slam_tpu") + ORIGINAL_TOOLS:
     loaded = [m for m in sys.modules if m == pkg or m.startswith(pkg + ".")]
     assert loaded == [pkg] and sys.modules[pkg] is None, loaded
 print(len(names))
 """
+
+
+# the rendered-sequence tools' twins, and what they must not import
+TOOL_TWINS = ("torch_run_euroc_synthetic", "torch_run_device_vo_euroc",
+              "torch_sweep_device_vo", "torch_run_kitti_synthetic",
+              "torch_profile_pipeline", "torch_eval_vocab_transfer",
+              "torch_run_euroc", "torch_run_kitti")
+ORIGINAL_TOOLS = ("bench", "run_euroc_synthetic", "run_device_vo_euroc",
+                  "sweep_device_vo", "run_kitti_synthetic", "profile_pipeline",
+                  "eval_vocab_transfer", "run_euroc", "run_kitti",
+                  "train_vocab", "synthetic_world")
+PROBE = ("TOOL_TWINS = %r\nORIGINAL_TOOLS = %r\n" % (TOOL_TWINS,
+                                                     ORIGINAL_TOOLS)
+         + PROBE)
 
 
 def _imported_roots(path):
@@ -112,25 +132,41 @@ def _port_files():
              for dirpath, _, names in os.walk(os.path.join(ROOT,
                                                            "slam_tpu_torch"))
              for name in names if name.endswith(".py")]
-    return sorted(files) + [os.path.join(ROOT, "chip_smoke.py"),
-                            os.path.join(ROOT, "tools", "profile_torch_vo.py"),
-                            os.path.join(ROOT, "tools", "torch_seed_spread.py")]
+    tools = [os.path.join(ROOT, "tools", name + ".py")
+             for name in ("profile_torch_vo", "torch_seed_spread")
+             + TOOL_TWINS]
+    return sorted(files) + [os.path.join(ROOT, "chip_smoke.py")] + tools
 
 
 def test_port_files_import_nothing_of_slam_tpu():
     files = _port_files()
     assert len(files) >= 25, files
-    bad = {os.path.relpath(f, ROOT): sorted(_imported_roots(f)
-                                            & {"slam_tpu", "jax"})
-           for f in files}
+    assert all(os.path.exists(f) for f in files)
+    bad = {os.path.relpath(f, ROOT): sorted(
+        _imported_roots(f) & {"slam_tpu", "jax", *ORIGINAL_TOOLS})
+        for f in files}
     assert not any(bad.values()), bad
 
 
+def test_tool_twins_import_only_numpy_torch_and_the_port():
+    """Each ``tools/torch_*`` twin imports the standard library, numpy,
+    torch (or PIL, to decode dataset frames), the port and other twins."""
+    import sys as _sys
+
+    allowed = {"numpy", "torch", "PIL", "slam_tpu_torch", *TOOL_TWINS,
+               *_sys.stdlib_module_names}
+    for name in TOOL_TWINS:
+        roots = _imported_roots(os.path.join(ROOT, "tools", name + ".py"))
+        assert roots <= allowed, (name, roots - allowed)
+
+
 def test_chip_smoke_imports_only_the_port():
-    """chip_smoke.py reaches the repo only through ``slam_tpu_torch``."""
+    """chip_smoke.py reaches the repo only through ``slam_tpu_torch`` and
+    the port's tools."""
     roots = _imported_roots(os.path.join(ROOT, "chip_smoke.py"))
-    assert roots == {"concurrent", "ctypes", "json", "pathlib", "subprocess",
-                     "sys", "time", "numpy", "torch", "slam_tpu_torch"}, roots
+    assert roots == {"concurrent", "ctypes", "importlib", "json", "pathlib",
+                     "subprocess", "sys", "time", "numpy", "torch",
+                     "slam_tpu_torch"}, roots
 
 
 def test_port_imports_and_runs_without_jax():
