@@ -28,9 +28,10 @@ concurrent sessions through ``parallel/batch.map_sequences``;
 Last the rendered-sequence tools (``tools/torch_*.py``) as a user runs them:
 the EuRoC-class room through ``DescriptorTracker`` and ``Mapper`` (a
 closure, SLAM ATE below the odometry's, a consistent map), the device VO
-on the room (ATE below the odometry's) and a cut KITTI-class drive (a
-blackout, the map saved and reloaded as an atlas, relocation reaching the
-RANSAC stage); it prints its own wall. Any failed check raises, so the
+on the room (ATE below the odometry's) and the KITTI-class small circuit
+(a blackout, a closure at the revisit, SLAM ATE below the odometry's, the
+map saved and reloaded as an atlas, relocation reaching the RANSAC stage);
+it prints its own wall. Any failed check raises, so the
 exit code is non-zero. Without a CUDA card it exits non-zero before
 printing any result.
 
@@ -99,12 +100,12 @@ EUROC_FRAMES, EUROC_DRIFT = 240, 0.004
 # device VO on the room: the middle drift row of RESULTS.md:107-109
 DVO_FRAMES, DVO_SEQS, DVO_DRIFT, DVO_WINDOW = 120, 2, 0.008, 8
 # KITTI-class street (BASELINE config 5) cut to the small-circuit diagnostic
-# (RESULTS.md:91-92: radius 30 m, heading bias 1.2e-4 rad/frame) and to a
-# drive of 8 frames, the last 4 blacked out: one track reset, a saved map
-# and a relocation pass whose atlas candidates reach the RANSAC stage. On
-# the CPU 4 frames reached only BOW_MATCH, 6 frames sent 1 candidate to the
-# RANSAC stage and 8 frames 3
-KITTI_FRAMES, KITTI_RADIUS, KITTI_DRIFT_YAW = 8, 30.0, 1.2e-4
+# (RESULTS.md:89-93: radius 30 m, heading bias 1.2e-4 rad/frame, 260
+# frames): one lap and a tail past the revisit near frame 209, blacked out
+# for frames 130-133. One track reset, a closure at the revisit, SLAM ATE
+# below the odometry's, a saved map and a relocation pass whose atlas
+# candidates reach the RANSAC stage
+KITTI_FRAMES, KITTI_RADIUS, KITTI_DRIFT_YAW = 260, 30.0, 1.2e-4
 KITTI_MAP = BUILD_DIR / "chip_smoke_kitti.npz"
 
 
@@ -1089,7 +1090,8 @@ def phase_device_vo_room(smi):
 
 def phase_kitti_relocation(smi):
     """``tools/torch_run_kitti_synthetic.py`` on the card, cut to the small
-    circuit: a blackout with one track reset, the map saved, reloaded as an
+    circuit: a blackout with one track reset, at least one closure at the
+    revisit, SLAM ATE below the odometry's, the map saved, reloaded as an
     atlas, and a relocation pass in which an atlas candidate reaches
     ``RELOCATION_MAP_POINT_RANSAC``; K1 once per extraction and device
     quantization of both sessions."""
@@ -1115,6 +1117,8 @@ def phase_kitti_relocation(smi):
           f"{extractions} extractions + {quantized} device quantizations; "
           f"on {smi}")
     assert res["track_resets"] == 1, res["track_resets"]
+    assert res["loop_closures"] >= 1, res
+    assert res["ate_slam_m"] < res["ate_odometry_m"], res
     assert reloc["atlas_keyframes"] == res["keyframes"], reloc
     assert reloc["stages"].get("RELOCATION_MAP_POINT_RANSAC", 0) >= 1, reloc
     return dict(res, wall=wall, launches=launches)

@@ -365,6 +365,27 @@ def pick_cg_iters(n_poses_padded: int, n_points_padded: int) -> int:
     return min(6 * n_poses_padded, 96)
 
 
+# The global BA's own rule (the port's; ROADMAP section 3): it solves its
+# reduced camera system exactly where that fits. At the reference's budget
+# (96 PCG steps above DENSE_SCHUR_MAX_KM) the KITTI-class street's global
+# BA, K 624 and M 24,320 padded, stopped with its keyframes 1.5457 m from
+# the truth against 1.1058 m converged. The dense solve's peak allocation
+# on an H100 was 586-589 B a padded pose-point pair (the f64 coupling, its
+# product with the point blocks' inverses and the einsum's copies; 1.689 GB
+# at 2.87M pairs, 8.901 GB at the street's 15.2M; tools/trace_euroc_ba.py
+# --replay-global), so 2^24 pairs take about 9.9 GB. Above that the global
+# BA keeps the reference's PCG budget.
+GLOBAL_DENSE_MAX_KM = 1 << 24
+
+
+def pick_global_cg_iters(n_poses_padded: int, n_points_padded: int) -> int:
+    """The global BA's solver from the padded sizes: 0 = dense Schur, else
+    the reference's PCG budget (``pick_cg_iters``)."""
+    if n_poses_padded * n_points_padded <= GLOBAL_DENSE_MAX_KM:
+        return 0
+    return pick_cg_iters(n_poses_padded, n_points_padded)
+
+
 HUBER_DELTA = math.sqrt(CHI2_THRESHOLD)
 
 

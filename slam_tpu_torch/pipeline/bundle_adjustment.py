@@ -351,18 +351,20 @@ class _ProblemBuilder:
             pr_idx=pr_idx, pr_meas=pr_meas, pr_sqrt_info=pr_si,
             pr_valid=pr_valid)
 
-    def solve_async(self, iterations: int) -> _InFlight:
-        """Enqueue the solve and its host copy; returns without waiting."""
+    def solve_async(self, iterations: int,
+                    pick=ba.pick_cg_iters) -> _InFlight:
+        """Enqueue the solve and its host copy; returns without waiting.
+        ``pick`` chooses the solver from the padded sizes."""
         problem = self.build()
         # the solver follows the PADDED shapes (0 = dense Schur)
         K, M = problem.poses.shape[0], problem.points.shape[0]
-        cg = ba.pick_cg_iters(K, M)
+        cg = pick(K, M)
         result = ba.solve_ba(_problem_to_device(problem, self.device),
                              iterations=int(iterations), cg_iters=int(cg))
         return _InFlight(result)
 
-    def solve(self, iterations: int) -> ba.BAResult:
-        return self.solve_async(iterations).get()
+    def solve(self, iterations: int, pick=ba.pick_cg_iters) -> ba.BAResult:
+        return self.solve_async(iterations, pick).get()
 
     def apply_poses(self, result: ba.BAResult, map_db: MapDB,
                     only: Optional[Set[KfId]] = None) -> None:
@@ -635,7 +637,9 @@ def global_bundle_adjust(current_kf_id: KfId, map_db: MapDB,
     ``device``. Unlike the JAX package, it leaves out a track's map point
     that was never triangulated: it waits at the origin, and its
     observations' huge residuals made the f32 solve accept steps that
-    moved every keyframe."""
+    moved every keyframe. And it solves its camera system exactly where
+    the dense system fits (``ops/ba.pick_global_cg_iters``), where the JAX
+    package stops PCG at 96 steps."""
     parameters = settings.parameters.slam
     builder = _ProblemBuilder(settings, device)
     for kf_id in sorted(map_db.keyframes):
@@ -663,7 +667,8 @@ def global_bundle_adjust(current_kf_id: KfId, map_db: MapDB,
     for edge in map_db.loop_closure_edges:
         ok = builder.add_loop_edge(edge.kf_id1, edge.kf_id2, edge.pose_diff)
         assert ok
-    result = builder.solve(parameters.globalBAIterations)
+    result = builder.solve(parameters.globalBAIterations,
+                           ba.pick_global_cg_iters)
     builder.prune_outliers(result, map_db)
     builder.apply_poses(result, map_db)
     builder.apply_points(result, map_db)

@@ -123,9 +123,9 @@ def test_global_ba_leaves_out_untriangulated_track_points(monkeypatch):
     solved = []
     solve = tb._ProblemBuilder.solve
 
-    def spy(builder, iterations):
+    def spy(builder, iterations, *pick):
         solved.append(list(builder.mp_ids))
-        return solve(builder, iterations)
+        return solve(builder, iterations, *pick)
     monkeypatch.setattr(tb._ProblemBuilder, "solve", spy)
     tb.global_bundle_adjust(max(db.keyframes), db, mapper.settings,
                             device="cpu")

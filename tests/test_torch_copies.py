@@ -80,11 +80,15 @@ def test_native_source_is_a_byte_copy():
         assert a.read() == b.read()
 
 
-def test_native_builds_outside_the_package_and_agrees():
+def test_native_builds_outside_the_package_and_agrees(monkeypatch,
+                                                      tmp_path):
     """The port's library builds under build/slam_tpu_torch/ and computes
-    what the reference's does."""
-    from slam_tpu import native as jnative
+    what the reference's does (built for this test: ``reference_native``)."""
+    from torch_tools_shared import reference_native
+
     from slam_tpu_torch import native as tnative
+
+    jnative = reference_native(monkeypatch, tmp_path)
 
     assert tnative.available()
     assert os.path.dirname(tnative._lib_path()) == os.path.join(

@@ -12,7 +12,8 @@ import sys
 
 import pytest
 import torch
-from torch_tools_shared import port_audit_in_jax_mapper, share_jax_pyramid
+from torch_tools_shared import (port_audit_in_jax_mapper, reference_native,
+                                share_jax_pyramid)
 
 import eval_vocab_transfer as jvocab
 import profile_pipeline as jprof
@@ -26,9 +27,16 @@ def _sections(table):
     return {ln.split()[0] for ln in table.splitlines()[1:]}
 
 
-def test_profile_sections_match_jax_tool(monkeypatch):
+def test_profile_sections_match_jax_tool(monkeypatch, tmp_path):
+    """The same sections in both tools, with both packages' native
+    libraries loaded (without one, a package times its NumPy fallbacks'
+    sections instead)."""
     import bench
 
+    from slam_tpu_torch import native as tnative
+
+    assert tnative.available()
+    reference_native(monkeypatch, tmp_path)
     port_audit_in_jax_mapper(monkeypatch)
     monkeypatch.setattr(bench, "_prewarm_ba_buckets", lambda settings: None)
     out = io.StringIO()

@@ -1,6 +1,7 @@
-"""Helpers of the ``tests/test_torch_tools_*`` files: the JAX pyramid fed
-to the port's front-end, recorders of the trackers' outputs, and the JAX
-tools' end-of-session audit."""
+"""Helpers of the ``tests/test_torch_*`` files that run both packages: the
+JAX package's native library built for the test, the JAX pyramid fed to the
+port's front-end, recorders of the trackers' outputs, and the JAX tools'
+end-of-session audit."""
 import os
 import sys
 
@@ -66,3 +67,21 @@ def port_audit_in_jax_mapper(monkeypatch):
     from slam_tpu_torch.pipeline.mapper_helpers import check_consistency
 
     monkeypatch.setattr(jmapper, "check_consistency", check_consistency)
+
+
+def reference_native(monkeypatch, tmp_path):
+    """The JAX package's native library, built by its own ``_build`` into
+    ``tmp_path`` and loaded for this test. The reference builds in place
+    (``g++ -o slam_tpu/native/libhostops.so``), so under pytest-xdist a
+    worker that loads the file while another worker is writing it reads a
+    truncated library and latches "unavailable" (``_tried``) for the rest of
+    its life: ``hamming_argmin`` then returns None and the mapper takes its
+    NumPy fallbacks, which time other ``utils/timer`` sections. The
+    monkeypatch restores the worker's own state after the test."""
+    from slam_tpu import native as jnative
+
+    monkeypatch.setattr(jnative, "_LIB_PATH", str(tmp_path / "libhostops.so"))
+    monkeypatch.setattr(jnative, "_lib", None)
+    monkeypatch.setattr(jnative, "_tried", False)
+    assert jnative.available()
+    return jnative

@@ -1,35 +1,56 @@
 #!/usr/bin/env python
-"""Trace the bundle adjustments of the EuRoC-class room session.
+"""Trace the loop closure and bundle adjustments of a rendered session.
 
-Runs ``run(n_frames, drift)`` of ``tools/torch_run_euroc_synthetic.py``
-(``--package torch``, on ``--device``) or of ``tools/run_euroc_synthetic.py``
-(``--package jax``, the JAX package on the CPU) and prints, against the
-rendered ground truth:
+``--scene room`` runs ``run(n_frames, drift)`` of
+``tools/torch_run_euroc_synthetic.py`` (the EuRoC-class room, 20 Hz);
+``--scene street`` runs ``drive`` of ``tools/torch_run_kitti_synthetic.py``
+(the KITTI-class street, 10 Hz, blackout at mid-run). ``--package torch``
+runs the port on ``--device``; ``--package jax`` runs the JAX package's
+original tool on the CPU. Against the rendered ground truth it prints:
 
   * every 20 frames: the keyframes' ATE (translation-aligned), the newest
     keyframe's camera-centre error and the odometry's;
-  * each loop correction: the keyframes' ATE before and after it;
-  * each global BA: K, M, the map points never triangulated when the
-    loop closed (at the origin, status NOT_TRIANGULATED), their
-    observations and how many the correction moved off the origin, the
-    keyframes' ATE before and after;
+  * each track reset (a frame that shares no track id with the one before
+    it): the keyframes' ATE before and after that frame, and again after
+    the first frame whose tracks resume;
+  * each loop-closure candidate that reaches Sim3 RANSAC: its frame, the
+    pair, the matches and the outcome;
+  * each loop correction: its frame, the pair, the keyframes' ATE before
+    and after it;
+  * each global BA: K and M (padded), the observed map points never
+    triangulated (at the origin, status NOT_TRIANGULATED: the JAX package's
+    global BA takes them, the port's leaves them out) and their
+    observations, how many of those the loop correction moved off the
+    origin, the solver branch (dense Schur or the PCG budget), the cost before and
+    after, the LM steps accepted, and the keyframes' ATE before and after;
   * each local BA that moves a camera more than 5 cm or the ATE by more
-    than 5 mm.
+    than 5 mm (room only; every street frame is a keyframe).
 
-``--replay-kf K`` (torch only) stops at keyframe K's local BA instead and
+``--replay-kf K`` (torch, room) stops at keyframe K's local BA instead and
 solves that problem again (``ops/ba.two_stage_lm``) on the card and on the
 CPU in f32 and in f64, printing how far each moves the cameras and its
-final cost.
+final cost. ``--replay-global`` (torch) captures the first global BA's
+problem, stops the session there, and solves the problem again on the card
+and on the CPU with each budget of ``--budgets`` (0 = dense Schur, solved
+only where the port's global BA would solve it so) and each LM step count of
+``--iterations``, printing the keyframes' ATE, the cost, the accepted LM
+steps and, on the card, the solve's peak allocation each gives; ``--save``
+keeps the problem, ``--load`` solves a kept one again without the session.
 
 Usage:
-  python tools/trace_euroc_ba.py [--package torch|jax] [--frames 240]
-      [--drift 0.004] [--device cuda|cpu] [--replay-kf K]
+  python tools/trace_euroc_ba.py [--scene room|street] [--package torch|jax]
+      [--frames N] [--drift SIGMA] [--drift-yaw RAD] [--radius M]
+      [--seed S] [--no-reloc] [--device cuda|cpu] [--replay-kf K]
+      [--replay-global] [--budgets 96,384,0] [--iterations 10,40]
+      [--devices cuda,cpu] [--save PROBLEM.npz] [--load PROBLEM.npz]
 """
 import argparse
 import importlib
 import json
 import os
 import sys
+import time
+import types
 
 import numpy as np
 
@@ -37,172 +58,581 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 
+from slam_tpu_torch.pipeline.bundle_adjustment import \
+    never_triangulated  # noqa: E402  (the port's rule, for both packages)
+
+OUT_DIR = os.path.join(ROOT, "build", "torch_tools")
+
 
 def _centre(T):
     return -T[:3, :3].T @ T[:3, 3]
 
 
-def main():
+def aligned_ate(centres, truth):
+    """RMSE of the camera centres against the truth after removing the mean
+    offset (translation alignment)."""
+    e = np.asarray(centres) - np.asarray(truth)
+    e -= e.mean(0)
+    return float(np.sqrt((e ** 2).sum(1).mean()))
+
+
+class GlobalTrace:
+    """What one global BA's problem and solve looked like."""
+
+    def __init__(self, problem, iterations, builder=None, cg=None):
+        self.K, self.M = problem.poses.shape[-3], problem.points.shape[-2]
+        self.nk = len(builder.kf_ids) if builder is not None else self.K
+        self.nm = len(builder.mp_ids) if builder is not None else self.M
+        self.iterations = iterations
+        self.cg = cg                  # the PCG budget the solve ran, 0 dense
+        self.costs = []               # cost0, one per LM step, final
+
+    @property
+    def branch(self):
+        return "dense Schur" if self.cg == 0 else f"PCG {self.cg}"
+
+    def steps(self):
+        """(cost before, cost after, LM steps accepted) from the recorded
+        costs: the initial one, then each step's trial cost."""
+        c0 = best = self.costs[0]
+        accepted = 0
+        for c in self.costs[1:1 + self.iterations]:
+            if c < best:
+                best, accepted = c, accepted + 1
+        return c0, best, accepted
+
+
+def record_costs(ba_mod, fn):
+    """Run ``fn()`` with the port's ``ops/ba._total_cost`` recording every
+    cost it returns; returns (fn's value, the costs)."""
+    costs, total = [], ba_mod._total_cost
+
+    def recorded(*a, **k):
+        out = total(*a, **k)
+        costs.append(float(out[0].reshape(-1)[0]))
+        return out
+
+    ba_mod._total_cost = recorded
+    try:
+        return fn(), costs
+    finally:
+        ba_mod._total_cost = total
+
+
+def record_cg(ba_mod, name, g, fn):
+    """Run ``fn()`` with ``ba_mod.<name>`` (the solve that the BA builder
+    calls) recording the ``cg_iters`` it is given in ``g.cg``."""
+    solve = getattr(ba_mod, name)
+
+    def recorded(*a, **k):
+        g.cg = int(k["cg_iters"])
+        return solve(*a, **k)
+
+    setattr(ba_mod, name, recorded)
+    try:
+        return fn()
+    finally:
+        setattr(ba_mod, name, solve)
+
+
+def jax_costs(jba, problem, iterations, cg):
+    """The JAX LM's costs on ``problem``: a fresh trace of its ``_lm_run``
+    whose ``_total_cost`` calls back with each cost (the package's own jit
+    cache holds the traces without the callback)."""
+    import jax
+
+    costs, total = [], jba._total_cost
+
+    def recorded(poses, points, p, huber_delta):
+        out = total(poses, points, p, huber_delta)
+        jax.debug.callback(lambda c: costs.append(float(c)), out[0],
+                           ordered=True)
+        return out
+
+    jba._total_cost = recorded
+    try:
+        run = jax.jit(jba._lm_run, static_argnums=(1, 2))
+        res = run(problem, iterations, cg, float(np.sqrt(jba.CHI2_THRESHOLD)),
+                  1e-4)
+        jax.block_until_ready(res)
+        jax.effects_barrier()
+    finally:
+        jba._total_cost = total
+    return costs
+
+
+def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--scene", choices=("room", "street"), default="room")
     ap.add_argument("--package", choices=("torch", "jax"), default="torch")
-    ap.add_argument("--frames", type=int, default=240)
-    ap.add_argument("--drift", type=float, default=0.004)
+    ap.add_argument("--frames", type=int, default=None,
+                    help="default 240 (room), 620 (street)")
+    ap.add_argument("--drift", type=float, default=None,
+                    help="default 0.004 (room), 0.01 (street)")
+    ap.add_argument("--drift-yaw", type=float, default=4e-5,
+                    help="street: heading-rate bias, rad/frame")
+    ap.add_argument("--radius", type=float, default=None,
+                    help="street: circuit radius, default the tool's 80 m")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--no-reloc", action="store_true",
+                    help="street: skip the relocation pass")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--replay-kf", type=int, default=None)
-    args = ap.parse_args()
-    pkg = "slam_tpu_torch" if args.package == "torch" else "slam_tpu"
+    ap.add_argument("--replay-global", action="store_true")
+    ap.add_argument("--budgets", default=None,
+                    help="--replay-global's PCG budgets, comma-separated; "
+                         "0 = dense Schur (default: the reference's "
+                         "budget, four times it, and the port's global BA's)")
+    ap.add_argument("--iterations", default=None,
+                    help="--replay-global's LM steps, comma-separated "
+                         "(default: the session's)")
+    ap.add_argument("--devices", default=None,
+                    help="--replay-global's devices (default: cuda,cpu)")
+    ap.add_argument("--save", default="",
+                    help="--replay-global: write the captured problem and "
+                         "the keyframes' true centres to this .npz")
+    ap.add_argument("--load", default="",
+                    help="--replay-global: solve the problem of a --save "
+                         ".npz again instead of driving the session")
+    ap.add_argument("--threads", type=int, default=0,
+                    help="torch CPU threads (0: torch's default)")
+    ap.add_argument("--every", type=int, default=20,
+                    help="frames between two ATE lines")
+    args = ap.parse_args(argv)
+    street = args.scene == "street"
+    if args.frames is None:
+        args.frames = 620 if street else 240
+    if args.drift is None:
+        args.drift = 0.01 if street else 0.004
     if args.package == "jax":
-        import jax
-        jax.config.update("jax_platforms", "cpu")
-        tool = importlib.import_module("run_euroc_synthetic")
-        kw = {}
-    else:
-        tool = importlib.import_module("torch_run_euroc_synthetic")
-        kw = {"device": args.device}
-    helpers = importlib.import_module(pkg + ".pipeline.mapper_helpers")
-    mapper_mod = importlib.import_module(pkg + ".pipeline.mapper")
-    closer = importlib.import_module(pkg + ".pipeline.loop_closer")
-    status = importlib.import_module(pkg + ".map.map_point").MapPointStatus
-    from slam_tpu_torch.pipeline.bundle_adjustment import never_triangulated
-    if args.package == "jax":
-        # the reference's audit raises a known false alarm (ROADMAP
-        # section 3); audit its map with the port's
-        mapper_mod.check_consistency = importlib.import_module(
-            "slam_tpu_torch.pipeline.mapper_helpers").check_consistency
+        assert args.replay_kf is None and not args.replay_global, \
+            "the replays solve the port's BA"
+    return args
 
-    times, poses = tool.make_sequence(args.frames, 0)
-    gt = [_centre(p) for p in poses]
-    frame_of = lambda t: int(round(t * 20.0))
 
-    def kf_ate(db):
-        e = np.array([_centre(kf.pose_cw) - gt[frame_of(kf.t)]
-                      for kf in db.keyframes.values()])
-        e -= e.mean(0)
-        return float(np.sqrt((e ** 2).sum(1).mean()))
+def main():
+    args = parse_args()
+    street = args.scene == "street"
+    if args.threads:
+        import torch
+        torch.set_num_threads(args.threads)
+    tracer = Tracer(args)
+    if args.replay_kf is not None:
+        assert not street, "--replay-kf replays the room's local BA"
+        return tracer.replay_local()
+    if args.replay_global:
+        return tracer.replay_global()
+    print(json.dumps(tracer.run()))
 
-    def wrap(owner, name, fn):
-        orig = getattr(owner, name)
-        setattr(owner, name, lambda *a, **k: fn(orig, *a, **k))
 
-    def advance(orig, self, mi):
-        out = orig(self, mi)
-        i = frame_of(mi.t)
-        if (i + 1) % 20 == 0:
-            kf = self.map_db.latest_keyframe()
-            err = np.linalg.norm(_centre(kf.pose_cw) - gt[frame_of(kf.t)])
-            odo = np.linalg.norm(_centre(mi.pose_trail[0].pose_cw) - gt[i])
-            print(f"frame {i}: keyframes' ATE {kf_ate(self.map_db):.4f} m, "
+class Tracer:
+    """The hooks, installed on one package's mapper, loop closer and BA
+    until ``close``."""
+
+    def __init__(self, args):
+        self.args = args
+        self.undo = []        # (owner, name, value) of every patch
+        jax_side = args.package == "jax"
+        pkg = "slam_tpu" if jax_side else "slam_tpu_torch"
+        if jax_side:
+            import jax
+            jax.config.update("jax_platforms", "cpu")
+        if args.scene == "street":
+            self.tool = importlib.import_module(
+                "run_kitti_synthetic" if jax_side
+                else "torch_run_kitti_synthetic")
+            radius = args.radius or self.tool.RADIUS
+            _, poses = self.tool.make_sequence(args.frames, radius=radius)
+            self.fps = self.tool.FPS
+        else:
+            self.tool = importlib.import_module(
+                "run_euroc_synthetic" if jax_side
+                else "torch_run_euroc_synthetic")
+            _, poses = self.tool.make_sequence(args.frames, 0)
+            self.fps = 20.0
+        self.gt = [_centre(p) for p in poses]
+        self.helpers = importlib.import_module(pkg + ".pipeline.mapper_helpers")
+        self.mapper_mod = importlib.import_module(pkg + ".pipeline.mapper")
+        self.closer = importlib.import_module(pkg + ".pipeline.loop_closer")
+        self.bamod = importlib.import_module(
+            pkg + ".pipeline.bundle_adjustment")
+        self.ba = importlib.import_module(pkg + ".ops.ba")
+        self.status = importlib.import_module(
+            pkg + ".map.map_point").MapPointStatus
+        self.stats_mod = importlib.import_module(pkg + ".utils.stats")
+        self.se3 = importlib.import_module(pkg + ".geometry.se3")
+        self.pair = self.sim3 = None  # the candidate after RANSAC, its Sim3
+        if jax_side:
+            # the reference's audit raises a known false alarm (ROADMAP
+            # section 3); audit its map with the port's
+            self.patch(self.mapper_mod, "check_consistency",
+                       importlib.import_module("slam_tpu_torch.pipeline."
+                                               "mapper_helpers"
+                                               ).check_consistency)
+        self.frame = -1
+        self.mapper = None    # the drive's (not the relocation pass's)
+        self.prev_ids, self.after_reset = set(), False
+        self.never = set()    # points never triangulated when a loop closed
+        self.in_global = False
+        self.globals = []     # GlobalTrace of each global BA
+        self.on_global = None
+        self.install()
+
+    # ------------------------------------------------------------------
+
+    def frame_of(self, t):
+        return int(round(t * self.fps))
+
+    def kf_ate(self, db):
+        kfs = list(db.keyframes.values())
+        return aligned_ate([_centre(kf.pose_cw) for kf in kfs],
+                           [self.gt[self.frame_of(kf.t)] for kf in kfs])
+
+    def patch(self, owner, name, value):
+        self.undo.append((owner, name, getattr(owner, name)))
+        setattr(owner, name, value)
+
+    def close(self):
+        """Take the hooks out again."""
+        while self.undo:
+            setattr(*self.undo.pop())
+
+    def install(self):
+        def wrap(owner, name, fn):
+            orig = getattr(owner, name)
+            self.patch(owner, name, lambda *a, **k: fn(orig, *a, **k))
+
+        wrap(self.mapper_mod.Mapper, "advance", self.advance)
+        wrap(self.closer.LoopCloser, "correct_loop", self.correct)
+        wrap(self.closer.LoopCloser, "_build_ransac", self.build_ransac)
+        wrap(self.closer.LoopCloser, "_refine_transform", self.refine)
+        wrap(self.stats_mod.LoopCloserStats, "update", self.outcome)
+        wrap(self.helpers, "global_bundle_adjust", self.global_ba)
+        wrap(self.bamod._ProblemBuilder, "solve", self.solve)
+        if self.args.scene == "room":
+            wrap(self.helpers, "local_bundle_adjust", self.local_ba)
+
+    def advance(self, orig, mapper, mi):
+        if self.mapper is None:
+            self.mapper = mapper
+        elif mapper is not self.mapper:
+            return orig(mapper, mi)     # the relocation pass's session
+        i = self.frame = self.frame_of(mi.t)
+        db = mapper.map_db
+        ids = set(int(v) for v in np.asarray(mi.track_ids).reshape(-1))
+        prev = self.prev_ids
+        reset = bool(prev) and not (ids & prev)
+        resumed = self.after_reset and bool(ids)
+        self.prev_ids = ids
+        before = self.kf_ate(db) if reset and db.keyframes else None
+        out = orig(mapper, mi)
+        if reset:
+            self.after_reset = True
+            print(f"track reset at frame {i}: keyframes' ATE "
+                  f"{before if before is not None else float('nan'):.4f} "
+                  f"-> {self.kf_ate(db):.4f} m ({len(db.keyframes)} "
+                  f"keyframes)", flush=True)
+        elif resumed:
+            self.after_reset = False
+            print(f"tracks resume at frame {i} ({len(ids)} tracks): "
+                  f"keyframes' ATE {self.kf_ate(db):.4f} m", flush=True)
+        if (i + 1) % self.args.every == 0 and db.keyframes:
+            kf = db.latest_keyframe()
+            err = np.linalg.norm(_centre(kf.pose_cw)
+                                 - self.gt[self.frame_of(kf.t)])
+            odo = np.linalg.norm(_centre(mi.pose_trail[0].pose_cw)
+                                 - self.gt[i])
+            print(f"frame {i}: keyframes' ATE {self.kf_ate(db):.4f} m, "
                   f"newest keyframe {int(kf.id)} off by {err:.4f} m, "
                   f"odometry by {odo:.4f} m", flush=True)
         return out
 
-    never = set()         # points never triangulated when a loop closed
+    def build_ransac(self, orig, closer, kf1, kf2, matches, *a, **k):
+        ransac = orig(closer, kf1, kf2, matches, *a, **k)
+        solve = ransac.solve
 
-    def correct(orig, self, current_kf, loop_closure):
-        a = kf_ate(self.map_db)
-        never.update(i for i, mp in self.map_db.map_points.items()
-                     if never_triangulated(mp))
-        orig(self, current_kf, loop_closure)
-        print(f"loop correction at keyframe {int(current_kf.id)} <- "
-              f"{int(loop_closure.candidate_kf_id)}: keyframes' ATE {a:.4f} "
-              f"-> {kf_ate(self.map_db):.4f} m", flush=True)
+        def traced(*sa, **sk):
+            res = solve(*sa, **sk)
+            print(f"  RANSAC at frame {self.frame}: keyframe {int(kf1.id)} "
+                  f"<- {int(kf2.id)}, {len(matches)} matches, "
+                  f"{int(np.sum(res.inliers)) if res.ok else 0} inliers, "
+                  f"{'passed' if res.ok else 'failed'}", flush=True)
+            return res
 
-    def global_ba(orig, cur, db, settings, **k):
-        waiting = [db.map_points[i] for i in never if i in db.map_points
-                   and db.map_points[i].status == status.NOT_TRIANGULATED]
+        ransac.solve = traced
+        self.pair, self.sim3 = (kf1, kf2), None
+        return ransac
+
+    def refine(self, orig, closer, *a, **k):
+        self.sim3 = orig(closer, *a, **k)
+        return self.sim3
+
+    def outcome(self, orig, stats, outcome):
+        """Each candidate refined after RANSAC: the gates' verdict, with the
+        correction distance and the time and path between the pair."""
+        orig(stats, outcome)
+        if self.pair is None or self.sim3 is None:
+            return
+        (cur, cand), sim3, se3 = self.pair, self.sim3, self.se3
+        self.pair = self.sim3 = None
+        # the loop closer's correction distance (loop_closer.cpp:280-290)
+        updated = (sim3 * se3.Sim3.from_se3(cand.pose_cw)).to_se3()
+        dist = np.linalg.norm(se3.camera_center(cur.pose_cw)
+                              - se3.camera_center(updated))
+        print(f"    -> {outcome.value}: correction {dist:.3f} m over "
+              f"{cur.t - cand.t:.1f} s", flush=True)
+
+    def correct(self, orig, closer, current_kf, loop_closure):
+        db = closer.map_db
+        a = self.kf_ate(db)
+        self.never.update(i for i, mp in db.map_points.items()
+                          if never_triangulated(mp))
+        orig(closer, current_kf, loop_closure)
+        print(f"loop correction at frame {self.frame}, keyframe "
+              f"{int(current_kf.id)} <- {int(loop_closure.candidate_kf_id)}:"
+              f" keyframes' ATE {a:.4f} -> {self.kf_ate(db):.4f} m",
+              flush=True)
+
+    def global_ba(self, orig, cur, db, settings, **k):
+        waiting = [db.map_points[i] for i in self.never
+                   if i in db.map_points and db.map_points[i].status
+                   == self.status.NOT_TRIANGULATED]
         moved = sum(1 for mp in waiting if np.any(mp.position))
-        n_obs = sum(len(mp.observations) for mp in waiting)
-        a = kf_ate(db)
-        orig(cur, db, settings, **k)
-        print(f"global BA at keyframe {int(cur)}: K {len(db.keyframes)}, M "
-              f"{len(db.map_points)}, {len(waiting)} points never "
-              f"triangulated ({n_obs} observations), {moved} of them moved "
-              f"off the origin by the "
-              f"loop correction; keyframes' ATE {a:.4f} -> {kf_ate(db):.4f} "
-              f"m", flush=True)
+        self.at_origin = [mp for mp in db.map_points.values()
+                          if mp.observations and never_triangulated(mp)]
+        n_obs = sum(len(mp.observations) for mp in self.at_origin)
+        a = self.kf_ate(db)
+        self.db = db
+        self.in_global = True
+        try:
+            orig(cur, db, settings, **k)
+        finally:
+            self.in_global = False
+        g = self.globals[-1]
+        c0, c1, acc = g.steps()
+        print(f"global BA at frame {self.frame}, keyframe {int(cur)}: K "
+              f"{g.nk} ({g.K} padded), M {g.nm} ({g.M} padded) of the map's "
+              f"{len(db.map_points)}; {len(self.at_origin)} observed points "
+              f"never triangulated at the origin ({n_obs} observations), "
+              f"{moved} of the {len(waiting)} never triangulated when the "
+              f"loop closed moved off it by the correction; {g.branch}, "
+              f"cost {c0:.6g} -> "
+              f"{c1:.6g}, {acc} of {g.iterations} LM steps accepted; "
+              f"keyframes' ATE {a:.4f} -> {self.kf_ate(db):.4f} m",
+              flush=True)
 
-    def local_ba(orig, keyframe, workspace, db, *a, **k):
+    def solve(self, orig, builder, iterations, *a, **k):
+        if not self.in_global:
+            return orig(builder, iterations, *a, **k)
+        problem = builder.build()
+        g = GlobalTrace(problem, iterations, builder)
+        self.globals.append(g)
+        solve = lambda: orig(builder, iterations, *a, **k)  # noqa: E731
+        if self.args.package == "jax":
+            import jax.numpy as jnp
+            res = record_cg(self.ba, "solve_ba_fused", g, solve)
+            jp = type(problem)(*(jnp.asarray(t) for t in problem))
+            g.costs = jax_costs(self.ba, jp, iterations, g.cg)
+            print(f"  (the JAX LM traced again for its costs: final "
+                  f"{g.steps()[1]:.6g} against the solve's "
+                  f"{float(np.asarray(res.cost)):.6g})", flush=True)
+        else:
+            res, g.costs = record_cg(self.ba, "solve_ba", g,
+                                     lambda: record_costs(self.ba, solve))
+        if self.on_global is not None:
+            self.on_global(builder, problem, g)
+        return res
+
+    def local_ba(self, orig, keyframe, workspace, db, *a, **k):
         before = {i: _centre(kf.pose_cw) for i, kf in db.keyframes.items()}
-        ate0 = kf_ate(db)
+        ate0 = self.kf_ate(db)
         out = orig(keyframe, workspace, db, *a, **k)
         moved = max((np.linalg.norm(_centre(kf.pose_cw) - before[i])
                      for i, kf in db.keyframes.items() if i in before),
                     default=0.0)
-        ate1 = kf_ate(db)
+        ate1 = self.kf_ate(db)
         if abs(ate1 - ate0) > 0.005 or moved > 0.05:
             print(f"  local BA at keyframe {int(keyframe.id)}: keyframes' "
                   f"ATE {ate0:.4f} -> {ate1:.4f} m, a camera moved "
                   f"{moved:.4f} m", flush=True)
         return out
 
-    wrap(mapper_mod.Mapper, "advance", advance)
-    wrap(closer.LoopCloser, "correct_loop", correct)
-    wrap(helpers, "global_bundle_adjust", global_ba)
-    wrap(helpers, "local_bundle_adjust", local_ba)
-    if args.replay_kf is not None:
-        assert args.package == "torch", "--replay-kf replays the port's BA"
-        return replay(tool, helpers, args)
-    out = os.path.join(ROOT, "build", "torch_tools", "trace_euroc_ba.csv")
-    os.makedirs(os.path.dirname(out), exist_ok=True)
-    res = tool.run(n_frames=args.frames, drift=args.drift, progress=False,
-                   out=out, **kw)
-    print(json.dumps(res))
+    # ------------------------------------------------------------------
 
+    def run(self, **extra):
+        """The whole session through the scene's tool; its result dict."""
+        a = self.args
+        os.makedirs(OUT_DIR, exist_ok=True)
+        if a.scene == "room":
+            kw = {} if a.package == "jax" else {"device": a.device}
+            return self.tool.run(
+                n_frames=a.frames, drift=a.drift, progress=False,
+                out=os.path.join(OUT_DIR, "trace_euroc_ba.csv"), **kw, **extra)
+        kw = dict(n_frames=a.frames, drift=a.drift, drift_yaw=a.drift_yaw,
+                  seed=a.seed, radius=a.radius or self.tool.RADIUS,
+                  blackout=(a.frames // 2, a.frames // 2 + 4),
+                  reloc=not a.no_reloc, progress=False)
+        # one directory a run, so that runs side by side keep their maps
+        # and trajectories apart
+        run_dir = os.path.join(OUT_DIR, f"trace_{a.package}_{a.frames}_"
+                               f"{kw['radius']:g}_{a.seed}")
+        os.makedirs(run_dir, exist_ok=True)
+        if a.package == "jax":
+            # the original writes its map and trajectory to fixed /tmp
+            # paths; send them to the run's directory
+            join = os.path.join
+            self.patch(self.tool, "os", types.SimpleNamespace(
+                path=types.SimpleNamespace(join=lambda p, *rest: join(
+                    run_dir if p == "/tmp" else p, *rest))))
+            return self.tool.run(**kw)
+        return self.tool.drive(
+            **kw, map_path=os.path.join(run_dir, "kitti_synth_map.npz"),
+            device=a.device)[0]
 
-def replay(tool, helpers, args):
-    """Capture keyframe ``args.replay_kf``'s two-stage local BA and solve
-    it again in f32 and in f64 on the card and the CPU."""
-    import torch
+    def replay_local(self):
+        """Capture keyframe ``--replay-kf``'s two-stage local BA and solve it
+        again in f32 and in f64 on the card and the CPU."""
+        import torch
 
-    from slam_tpu_torch.ops import ba
+        ba, helpers, args = self.ba, self.helpers, self.args
+        cur, captured, seen = [None], {}, []
+        lba, two = helpers.local_bundle_adjust, ba.solve_ba_two_stage
 
-    cur, captured, seen = [None], {}, []
-    lba = helpers.local_bundle_adjust
+        def local_ba(keyframe, *a, **k):
+            cur[0] = int(keyframe.id)
+            return lba(keyframe, *a, **k)
 
-    def local_ba(keyframe, *a, **k):
-        cur[0] = int(keyframe.id)
-        return lba(keyframe, *a, **k)
+        def two_stage(p, s2, slot, info, **k):
+            seen.append(cur[0])
+            if cur[0] == args.replay_kf:
+                captured.update(p=type(p)(*(t.cpu() for t in p)),
+                                s2=s2.cpu(), slot=slot.cpu(), info=info.cpu(),
+                                **k)
+                raise Captured
+            return two(p, s2, slot, info, **k)
 
-    class Captured(Exception):
-        pass
+        self.patch(helpers, "local_bundle_adjust", local_ba)
+        self.patch(ba, "solve_ba_two_stage", two_stage)
+        try:
+            self.run()
+        except Captured:
+            pass
+        finally:
+            self.close()
+        assert captured, (f"keyframe {args.replay_kf} ran no two-stage local"
+                          f" BA; these did: {seen}")
+        p, s2, slot, info = (captured[k] for k in ("p", "s2", "slot", "info"))
+        c0 = np.array([_centre(T) for T in p.poses[0].numpy()])
+        devices = ("cuda", "cpu") if torch.cuda.is_available() else ("cpu",)
+        for dev in devices:
+            for dtype in (torch.float32, torch.float64):
+                cast = lambda t: (t.to(dev, dtype) if t.is_floating_point()
+                                  else t.to(dev))
+                res = ba.two_stage_lm(
+                    type(p)(*(cast(t) for t in p)), cast(s2), cast(slot),
+                    cast(info), iterations=captured["iterations"],
+                    cg_iters=captured["cg_iters"])
+                c1 = np.array([_centre(T) for T in
+                               res.poses[0].double().cpu().numpy()])
+                print(f"replay keyframe {args.replay_kf} (K "
+                      f"{p.poses.shape[1]}, M {p.points.shape[1]}) on {dev}, "
+                      f"{str(dtype)[6:]}: a camera moved "
+                      f"{np.linalg.norm(c1 - c0, axis=1).max():.4f} m; final "
+                      f"cost {float(res.cost[0]):.6g}", flush=True)
 
-    def two_stage(p, s2, slot, info, **k):
-        seen.append(cur[0])
-        if cur[0] == args.replay_kf:
-            captured.update(p=type(p)(*(t.cpu() for t in p)), s2=s2.cpu(),
-                            slot=slot.cpu(), info=info.cpu(), **k)
+    def replay_global(self):
+        """Capture the first global BA's problem, stop the session, and
+        solve the problem again on the card and the CPU at each budget."""
+        import torch
+
+        from slam_tpu_torch.pipeline.bundle_adjustment import (
+            _problem_to_device)
+
+        captured, a = {}, self.args
+
+        def capture(builder, problem, g):
+            db = self.db
+            kfs = [db.keyframes[i] for i in builder.kf_ids]
+            captured.update(problem=problem, g=g, truth=[
+                self.gt[self.frame_of(kf.t)] for kf in kfs])
             raise Captured
-        return two(p, s2, slot, info, **k)
 
-    two = ba.solve_ba_two_stage
-    helpers.local_bundle_adjust, ba.solve_ba_two_stage = local_ba, two_stage
-    try:
-        tool.run(n_frames=args.frames, drift=args.drift, progress=False,
-                 out=os.path.join(ROOT, "build", "trace_replay.csv"),
-                 device=args.device)
-    except Captured:
-        pass
-    finally:
-        helpers.local_bundle_adjust, ba.solve_ba_two_stage = lba, two
-    assert captured, (f"keyframe {args.replay_kf} ran no two-stage local "
-                      f"BA; these did: {seen}")
-    p, s2, slot, info = (captured[k] for k in ("p", "s2", "slot", "info"))
-    c0 = np.array([_centre(T) for T in p.poses[0].numpy()])
-    devices = ("cuda", "cpu") if torch.cuda.is_available() else ("cpu",)
-    for dev in devices:
-        for dtype in (torch.float32, torch.float64):
-            cast = lambda t: (t.to(dev, dtype) if t.is_floating_point()
-                              else t.to(dev))
-            res = ba.two_stage_lm(
-                type(p)(*(cast(t) for t in p)), cast(s2), cast(slot),
-                cast(info), iterations=captured["iterations"],
-                cg_iters=captured["cg_iters"])
-            c1 = np.array([_centre(T) for T in
-                           res.poses[0].double().cpu().numpy()])
-            print(f"replay keyframe {args.replay_kf} (K {p.poses.shape[1]}, "
-                  f"M {p.points.shape[1]}) on {dev}, {str(dtype)[6:]}: a "
-                  f"camera moved {np.linalg.norm(c1 - c0, axis=1).max():.4f}"
-                  f" m; final cost {float(res.cost[0]):.6g}", flush=True)
+        if a.load:
+            z = np.load(a.load)
+            problem = self.ba.BAProblem(*(z[f] for f in
+                                          self.ba.BAProblem._fields))
+            K, M = problem.poses.shape[0], problem.points.shape[0]
+            captured.update(problem=problem, truth=list(z["truth"]),
+                            g=GlobalTrace(problem, int(z["iterations"]),
+                                          cg=self.ba.pick_global_cg_iters(
+                                              K, M)))
+        else:
+            self.on_global = capture
+            try:
+                self.run()
+            except Captured:
+                pass
+        assert captured, "the session ran no global BA"
+        problem, g, truth = (captured[k] for k in ("problem", "g", "truth"))
+        if a.save:
+            np.savez_compressed(a.save, truth=np.asarray(truth),
+                                iterations=g.iterations, **problem._asdict())
+        n = len(truth)
+        ref = self.ba.pick_cg_iters(g.K, g.M)
+        budgets = ([int(b) for b in a.budgets.split(",")]
+                   if a.budgets else [ref, 4 * ref, g.cg])
+        steps = ([int(i) for i in a.iterations.split(",")]
+                 if a.iterations else [g.iterations])
+        start = aligned_ate([_centre(T) for T in problem.poses[:n]], truth)
+        print(f"replay the global BA of "
+              f"{a.load or f'frame {self.frame}'}: K {n} ({g.K} "
+              f"padded), M {g.nm} ({g.M} padded), {g.iterations} LM steps; "
+              f"keyframes' ATE before it {start:.4f} m", flush=True)
+        devices = a.devices.split(",") if a.devices else (
+            ("cuda", "cpu") if torch.cuda.is_available() else ("cpu",))
+        for dev in devices:
+            for cg in budgets:
+                if cg == 0 and self.ba.pick_global_cg_iters(g.K, g.M):
+                    print(f"  {dev}, dense Schur: left out, K * M "
+                          f"{g.K * g.M} > {self.ba.GLOBAL_DENSE_MAX_KM}")
+                    continue
+                for it in steps:
+                    self.replay_one(problem, truth, dev, cg, it)
+
+    def replay_one(self, problem, truth, dev, cg, iterations):
+        """Solve ``problem`` on ``dev`` with ``iterations`` LM steps of PCG
+        budget ``cg`` (0: dense Schur); print what it gives."""
+        import torch
+
+        from slam_tpu_torch.pipeline.bundle_adjustment import (
+            _problem_to_device)
+
+        n = len(truth)
+        p = _problem_to_device(problem, torch.device(dev))
+        card = p.poses.is_cuda
+        if card:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res, costs = record_costs(self.ba, lambda: self.ba.solve_ba(
+            p, iterations=iterations, cg_iters=cg))
+        poses = res.poses[0].double().cpu().numpy()
+        ms = 1e3 * (time.perf_counter() - t0)
+        # the solve's own peak on the card, above the problem's tensors
+        peak = (f", peak {(torch.cuda.max_memory_allocated() - base) / 1e9:.3f}"
+                f" GB allocated" if card else "")
+        r = GlobalTrace(problem, iterations, cg=cg)
+        r.costs = costs
+        c0, c1, acc = r.steps()
+        ate = aligned_ate([_centre(T) for T in poses[:n]], truth)
+        print(f"  {dev}, {r.branch}, {iterations} LM steps: keyframes' ATE "
+              f"{ate:.4f} m, cost {c0:.6g} -> {c1:.6g}, {acc} accepted, "
+              f"{ms:.1f} ms{peak}", flush=True)
+
+
+class Captured(Exception):
+    pass
 
 
 if __name__ == "__main__":
