@@ -30,8 +30,10 @@ the EuRoC-class room through ``DescriptorTracker`` and ``Mapper`` (a
 closure, SLAM ATE below the odometry's, a consistent map), the device VO
 on the room (ATE below the odometry's) and the KITTI-class small circuit
 (a blackout, a closure at the revisit, SLAM ATE below the odometry's, the
-map saved and reloaded as an atlas, relocation reaching the RANSAC stage);
-it prints its own wall. Any failed check raises, so the
+map saved and reloaded as an atlas, relocation reaching the RANSAC stage,
+and the street's drift proxy: the newest keyframe's error at frame 99
+beside the odometry's and the keyframes' Sim3-fit scale); it prints its
+own wall. Any failed check raises, so the
 exit code is non-zero. Without a CUDA card it exits non-zero before
 printing any result.
 
@@ -1001,7 +1003,7 @@ def phase_multichip(smi):
 
 
 def _tool(name):
-    """A ``tools/torch_*.py`` module, imported as its scripts import each
+    """A module of ``tools/``, imported as its scripts import each
     other."""
     import importlib
 
@@ -1094,16 +1096,35 @@ def phase_kitti_relocation(smi):
     revisit, SLAM ATE below the odometry's, the map saved, reloaded as an
     atlas, and a relocation pass in which an atlas candidate reaches
     ``RELOCATION_MAP_POINT_RANSAC``; K1 once per extraction and device
-    quantization of both sessions."""
+    quantization of both sessions. Prints the street's drift proxy: the
+    newest keyframe's error at frame 99 beside the odometry's, and the
+    Sim3-fit scale of the drive's keyframes."""
+    from slam_tpu_torch.pipeline.mapper import Mapper
+
     tool = _tool("torch_run_kitti_synthetic")
+    proxy = _tool("street_proxy")
+    _, poses = tool.make_sequence(KITTI_FRAMES, radius=KITTI_RADIUS)
+    truth = np.array([-T[:3, :3].T @ T[:3, 3] for T in poses])
+    errs = {}
     _k1_counts_reset()
     t0 = time.perf_counter()
-    res, _, sessions = tool.drive(
-        n_frames=KITTI_FRAMES, drift_yaw=KITTI_DRIFT_YAW, radius=KITTI_RADIUS,
-        blackout=(KITTI_FRAMES // 2, KITTI_FRAMES // 2 + 4), reloc=True,
-        progress=False, map_path=str(KITTI_MAP), device="cuda")
+    untrack = proxy.track_errors(Mapper, truth, tool.FPS, errs)
+    try:
+        res, drive_mapper, sessions = tool.drive(
+            n_frames=KITTI_FRAMES, drift_yaw=KITTI_DRIFT_YAW,
+            radius=KITTI_RADIUS,
+            blackout=(KITTI_FRAMES // 2, KITTI_FRAMES // 2 + 4), reloc=True,
+            progress=False, map_path=str(KITTI_MAP), device="cuda")
+    finally:
+        untrack()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    kfs = list(drive_mapper.map_db.keyframes.values())
+    frames = np.array([int(round(kf.t * tool.FPS)) for kf in kfs])
+    c = np.array([-kf.pose_cw[:3, :3].T @ kf.pose_cw[:3, 3] for kf in kfs])
+    first = frames <= 99
+    scale_99 = proxy.sim3_scale(c[first], truth[frames[first]])
+    scale_all = proxy.sim3_scale(c, truth[frames])
     launches, extractions, quantized = _k1_counts(
         [ex for m, t in sessions for ex in (t.extractor, m._orb_extractor)])
     reloc = res["relocation"]
@@ -1116,12 +1137,19 @@ def phase_kitti_relocation(smi):
           f"relocation {reloc}; wall {wall:.1f} s; K1 launches {launches} = "
           f"{extractions} extractions + {quantized} device quantizations; "
           f"on {smi}")
+    print(f"street drift proxy: at frame 99 the newest keyframe is off by "
+          f"{errs['kf_err_99']:.6f} m against the odometry's "
+          f"{errs['odo_err_99']:.6f} m; "
+          f"keyframes' Sim3-fit scale {scale_99:.6f} (0-99), {scale_all:.6f} "
+          f"(all)")
     assert res["track_resets"] == 1, res["track_resets"]
     assert res["loop_closures"] >= 1, res
     assert res["ate_slam_m"] < res["ate_odometry_m"], res
     assert reloc["atlas_keyframes"] == res["keyframes"], reloc
     assert reloc["stages"].get("RELOCATION_MAP_POINT_RANSAC", 0) >= 1, reloc
-    return dict(res, wall=wall, launches=launches)
+    return dict(res, wall=wall, launches=launches, scale_0_99=scale_99,
+                scale_all=scale_all, kf_err_99=errs["kf_err_99"],
+                odo_err_99=errs["odo_err_99"])
 
 
 def phase_frontend(images):

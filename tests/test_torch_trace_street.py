@@ -92,3 +92,52 @@ def test_street_traces_agree(traces):
     final, solve = (float(v) for v in re.findall(
         r"final ([\d.e+-]+) against the solve's ([\d.e+-]+)", replay[0])[0])
     np.testing.assert_allclose(final, solve, rtol=1e-6)
+
+
+def test_street_scale_fit(traces):
+    """The drive's Sim3-fit scale and the odometry's sideways error a step
+    (``Tracer.scale_fit``): the same odometry in both packages. (The
+    fixture ends each drive with a global BA, which in the JAX package
+    takes the points never triangulated and moves every keyframe, so only
+    the port's scale is held near 1.)"""
+    (_, jt, _), (_, tt, _) = traces["jax"], traces["torch"]
+    jf, tf = jt.scale_fit(), tt.scale_fit()
+    assert set(jf) == set(tf) == {
+        "sim3_scale_0_99", "sim3_scale_all", "odometry_sideways_mm_0_99",
+        "odometry_sideways_mm_all"}
+    assert jf["odometry_sideways_mm_all"] == tf["odometry_sideways_mm_all"]
+    assert tf["sim3_scale_0_99"] == tf["sim3_scale_all"]  # 6 frames
+    assert 0.95 < tf["sim3_scale_all"] < 1.05
+
+
+def test_street_replay_splits_the_local_ba_from_the_truth():
+    """``--replay-kf 2`` on the 6-frame drive: keyframe 2's local BA solved
+    again, split into its stages, then solved from the truth with each term
+    off in turn; the hooks come out again."""
+    from slam_tpu_torch.ops import ba
+    from slam_tpu_torch.pipeline import bundle_adjustment as bamod
+    from slam_tpu_torch.pipeline import mapper_helpers as helpers
+
+    before = (helpers.local_bundle_adjust, helpers.create_new_map_points,
+              ba.solve_ba_two_stage, bamod._ProblemBuilder.build)
+    t = tracer.Tracer(tracer.parse_args(ARGS + ["--replay-kf", "2"]))
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        got = t.replay_local()
+    lines = out.getvalue().splitlines()
+    assert (helpers.local_bundle_adjust, helpers.create_new_map_points,
+            ba.solve_ba_two_stage, bamod._ProblemBuilder.build) == before
+    assert any(ln.startswith("split keyframe 2's local BA (K 3,")
+               for ln in lines), lines
+    for name in ("before the BA", "after stage 1", "after stage 2"):
+        assert any(ln.startswith(f"  {name}: newest keyframe off by")
+                   for ln in lines), name
+    depth = [ln for ln in lines if "median depth in the newest keyframe" in ln]
+    assert len(depth) == 3 and "(0 points)" not in depth[0], depth
+    assert any(re.match(r"  level 1: \d+ observations", ln) for ln in lines)
+    np.testing.assert_allclose(got["the truth"], (0.0, 0.0, 1.0), atol=1e-12)
+    variants = [k for k in got if k.startswith("stage 2 alone")]
+    assert len(variants) == 7, variants
+    # the anchor holds the newest keyframe; without it the gauge is free
+    assert got["stage 2 alone, every term"][0] < 1e-3
+    assert all(0.95 < v[2] < 1.05 for v in got.values())

@@ -24,18 +24,30 @@ original tool on the CPU. Against the rendered ground truth it prints:
     origin, the solver branch (dense Schur or the PCG budget), the cost before and
     after, the LM steps accepted, and the keyframes' ATE before and after;
   * each local BA that moves a camera more than 5 cm or the ATE by more
-    than 5 mm (room only; every street frame is a keyframe).
+    than 5 mm (room only; every street frame is a keyframe);
+  * at the end of a street drive, in the result: the Sim3-fit scale of the
+    keyframes 0-99 and of all of them (``street_proxy.sim3_scale``), and the
+    odometry's mean sideways error a step over the same keyframes.
 
-``--replay-kf K`` (torch, room) stops at keyframe K's local BA instead and
-solves that problem again (``ops/ba.two_stage_lm``) on the card and on the
-CPU in f32 and in f64, printing how far each moves the cameras and its
-final cost. ``--replay-global`` (torch) captures the first global BA's
-problem, stops the session there, and solves the problem again on the card
-and on the CPU with each budget of ``--budgets`` (0 = dense Schur, solved
-only where the port's global BA would solve it so) and each LM step count of
-``--iterations``, printing the keyframes' ATE, the cost, the accepted LM
-steps and, on the card, the solve's peak allocation each gives; ``--save``
-keeps the problem, ``--load`` solves a kept one again without the session.
+``--replay-kf K`` (torch, room or street) stops at keyframe K's local BA
+instead and solves that problem again (``ops/ba.two_stage_lm``) on the card
+and on the CPU in f32 and in f64, printing how far each moves the cameras
+and its final cost; then splits it and solves it again from the truth
+(``Tracer.truth_replay``: the newest keyframe's error, its step along the
+track and the window's Sim3-fit scale before the BA and after each stage;
+the new points' and window points' depths against the truth; the
+reprojection residuals at the truth by pyramid level; and from the truth,
+both stages, then stage 2 with every term, without the odometry edges,
+without the anchor, with the odometry edges at the truth, at the truth but
+their measured sideways part, and at the truth +- 5 mm sideways a step);
+``--save`` keeps the problem. ``--replay-global`` (torch) captures the
+first global BA's problem, stops the session there, and solves it again on
+the card and on the CPU with each budget of ``--budgets`` (0 = dense Schur,
+solved only where the port's global BA would solve it so) and each LM step
+count of ``--iterations``, printing the keyframes' ATE, the cost, the
+accepted LM steps and, on the card, the solve's peak allocation each gives;
+``--save`` keeps the problem, ``--load`` solves a kept one again without
+the session.
 
 Usage:
   python tools/trace_euroc_ba.py [--scene room|street] [--package torch|jax]
@@ -60,6 +72,7 @@ sys.path.insert(0, os.path.join(ROOT, "tools"))
 
 from slam_tpu_torch.pipeline.bundle_adjustment import \
     never_triangulated  # noqa: E402  (the port's rule, for both packages)
+from street_proxy import sim3_scale  # noqa: E402
 
 OUT_DIR = os.path.join(ROOT, "build", "torch_tools")
 
@@ -74,6 +87,49 @@ def aligned_ate(centres, truth):
     e = np.asarray(centres) - np.asarray(truth)
     e -= e.mean(0)
     return float(np.sqrt((e ** 2).sum(1).mean()))
+
+
+def triangulate_at(poses, points, obs_kf, obs_mp, obs_meas, obs_si,
+                   obs_valid, steps=5):
+    """Every point of a BA problem triangulated from its valid observations
+    through ``poses`` (K, 4, 4): the linear least-squares solve, then
+    ``steps`` Gauss-Newton steps on the whitened reprojection error.
+    Returns (points (M, 3), ok (M,)): ok where two or more observations
+    see the point in front of their cameras."""
+    M = len(points)
+    o = np.flatnonzero(obs_valid)
+    T = poses[obs_kf[o]]
+    R, t = T[:, :3, :3], T[:, :3, 3]
+    xy, w = obs_meas[o], obs_si[o][:, None, None]
+    A = (xy[:, :, None] * R[:, 2:3, :] - R[:, :2, :]) * w     # (n, 2, 3)
+    rhs = (t[:, :2] - xy * t[:, 2:3]) * w[..., 0]              # (n, 2)
+    N = np.zeros((M, 3, 3))
+    v = np.zeros((M, 3))
+    np.add.at(N, obs_mp[o], np.einsum("nci,ncj->nij", A, A))
+    np.add.at(v, obs_mp[o], np.einsum("nci,nc->ni", A, rhs))
+    count = np.bincount(obs_mp[o], minlength=M)
+    ok = count >= 2
+    N[~ok] = np.eye(3)
+    X = np.where(ok[:, None], np.linalg.solve(N, v[..., None])[..., 0],
+                 points)
+    for _ in range(steps):
+        pc = np.einsum("nij,nj->ni", R, X[obs_mp[o]]) + t
+        z = pc[:, 2:3]
+        r = (pc[:, :2] / z - xy) * w[..., 0]
+        Jp = np.concatenate([np.eye(2)[None].repeat(len(o), 0),
+                             -pc[:, :2, None] / z[..., None]], axis=2)
+        J = (Jp / z[..., None]) @ R * w                        # (n, 2, 3)
+        H = np.zeros((M, 3, 3))
+        g = np.zeros((M, 3))
+        np.add.at(H, obs_mp[o], np.einsum("nci,ncj->nij", J, J))
+        np.add.at(g, obs_mp[o], np.einsum("nci,nc->ni", J, r))
+        H[~ok] = np.eye(3)
+        X = X - np.where(ok[:, None], np.linalg.solve(H, g[..., None])[..., 0],
+                         0.0)
+    z = np.einsum("nj,nj->n", R[:, 2], X[obs_mp[o]]) + t[:, 2]
+    in_front = np.ones(M, bool)
+    np.logical_and.at(in_front, obs_mp[o], z > 0)
+    return X, ok & in_front
 
 
 class GlobalTrace:
@@ -190,7 +246,9 @@ def parse_args(argv=None):
                     help="--replay-global's devices (default: cuda,cpu)")
     ap.add_argument("--save", default="",
                     help="--replay-global: write the captured problem and "
-                         "the keyframes' true centres to this .npz")
+                         "the keyframes' true centres to this .npz; "
+                         "--replay-kf: the captured problem, its stage-2 "
+                         "arguments and the window keyframes' true poses")
     ap.add_argument("--load", default="",
                     help="--replay-global: solve the problem of a --save "
                          ".npz again instead of driving the session")
@@ -218,11 +276,13 @@ def main():
         torch.set_num_threads(args.threads)
     tracer = Tracer(args)
     if args.replay_kf is not None:
-        assert not street, "--replay-kf replays the room's local BA"
         return tracer.replay_local()
     if args.replay_global:
         return tracer.replay_global()
-    print(json.dumps(tracer.run()))
+    res = tracer.run()
+    if street:
+        res.update(tracer.scale_fit())
+    print(json.dumps(res))
 
 
 class Tracer:
@@ -250,6 +310,7 @@ class Tracer:
                 else "torch_run_euroc_synthetic")
             _, poses = self.tool.make_sequence(args.frames, 0)
             self.fps = 20.0
+        self.gt_poses = np.asarray(poses, np.float64)
         self.gt = [_centre(p) for p in poses]
         self.helpers = importlib.import_module(pkg + ".pipeline.mapper_helpers")
         self.mapper_mod = importlib.import_module(pkg + ".pipeline.mapper")
@@ -287,6 +348,29 @@ class Tracer:
         kfs = list(db.keyframes.values())
         return aligned_ate([_centre(kf.pose_cw) for kf in kfs],
                            [self.gt[self.frame_of(kf.t)] for kf in kfs])
+
+    def scale_fit(self):
+        """The Sim3-fit scale (``street_proxy.sim3_scale``) of the drive's
+        keyframes 0-99 and of all of them against the truth, and the mean
+        sideways (camera x) error of the odometry between consecutive
+        keyframes, in mm a step, over the same spans: the part of the
+        odometry edges' measurement that shortens the local BA's window
+        (``--replay-kf``)."""
+        kfs = sorted(self.mapper.map_db.keyframes.values(),
+                     key=lambda kf: kf.t)
+        frames = np.array([self.frame_of(kf.t) for kf in kfs])
+        c = np.array([_centre(kf.pose_cw) for kf in kfs])
+        truth = np.asarray(self.gt)[frames]
+        first = frames <= 99
+        side = np.array([
+            (a.orig_pose_cw @ np.linalg.inv(b.orig_pose_cw)
+             - self.gt_poses[i] @ np.linalg.inv(self.gt_poses[j]))[0, 3]
+            for a, b, i, j in zip(kfs, kfs[1:], frames, frames[1:])])
+        return {"sim3_scale_0_99": sim3_scale(c[first], truth[first]),
+                "sim3_scale_all": sim3_scale(c, truth),
+                "odometry_sideways_mm_0_99": 1e3 * float(
+                    side[first[1:]].mean()),
+                "odometry_sideways_mm_all": 1e3 * float(side.mean())}
 
     def patch(self, owner, name, value):
         self.undo.append((owner, name, getattr(owner, name)))
@@ -491,26 +575,41 @@ class Tracer:
 
     def replay_local(self):
         """Capture keyframe ``--replay-kf``'s two-stage local BA and solve it
-        again in f32 and in f64 on the card and the CPU."""
+        again in f32 and in f64 on the card and the CPU; then split it and
+        solve it again from the truth (``truth_replay``)."""
         import torch
 
         ba, helpers, args = self.ba, self.helpers, self.args
-        cur, captured, seen = [None], {}, []
+        cur, captured, seen, last = [None], {}, [], {}
         lba, two = helpers.local_bundle_adjust, ba.solve_ba_two_stage
+        create = helpers.create_new_map_points
+        build = self.bamod._ProblemBuilder.build
 
-        def local_ba(keyframe, *a, **k):
+        def new_points(keyframe, adjacent, db, *a, **k):
+            before = set(db.map_points)
+            create(keyframe, adjacent, db, *a, **k)
+            last["new"] = set(db.map_points) - before
+
+        def built(builder):
+            last["builder"] = builder
+            return build(builder)
+
+        def local_ba(keyframe, workspace, db, *a, **k):
             cur[0] = int(keyframe.id)
-            return lba(keyframe, *a, **k)
+            last["db"] = db
+            return lba(keyframe, workspace, db, *a, **k)
 
         def two_stage(p, s2, slot, info, **k):
             seen.append(cur[0])
             if cur[0] == args.replay_kf:
                 captured.update(p=type(p)(*(t.cpu() for t in p)),
                                 s2=s2.cpu(), slot=slot.cpu(), info=info.cpu(),
-                                **k)
+                                **last, **k)
                 raise Captured
             return two(p, s2, slot, info, **k)
 
+        self.patch(helpers, "create_new_map_points", new_points)
+        self.patch(self.bamod._ProblemBuilder, "build", built)
         self.patch(helpers, "local_bundle_adjust", local_ba)
         self.patch(ba, "solve_ba_two_stage", two_stage)
         try:
@@ -539,6 +638,204 @@ class Tracer:
                       f"{str(dtype)[6:]}: a camera moved "
                       f"{np.linalg.norm(c1 - c0, axis=1).max():.4f} m; final "
                       f"cost {float(res.cost[0]):.6g}", flush=True)
+        return self.truth_replay(captured)
+
+    def truth_replay(self, captured):
+        """Keyframe ``--replay-kf``'s local BA, split and then solved from
+        the truth on the CPU in f64 (``--save`` writes the problem, its
+        stage-2 arguments and the window's true poses). The split: the
+        newest keyframe's camera-centre error, the along-track part of its
+        step from the keyframe before it, and the window's Sim3-fit scale,
+        before the BA, after stage 1 and after stage 2; the new points' and
+        the window
+        points' depths against the same points triangulated through the true
+        poses; the reprojection residuals at the truth by pyramid level. From
+        the truth (true poses, points triangulated through them): both
+        stages as the mapper runs them, then stage 2 alone with every term,
+        without the odometry edges, without the anchor, with the odometry
+        edges' measurements at the truth, at the truth but for their
+        measured sideways (camera x) part, and at the truth +- 5 mm
+        sideways a step. Returns {name: (newest keyframe's error, its
+        step's along-track error, window scale)}."""
+        import torch
+
+        ba, args = self.ba, self.args
+        b, db = captured["builder"], captured["db"]
+        nk, nm = len(b.kf_ids), len(b.mp_ids)
+        P = {f: t[0].double().numpy() if t.is_floating_point()
+             else t[0].numpy() for f, t in captured["p"]._asdict().items()}
+        slot = int(captured["slot"].reshape(-1)[0])
+        kf_ids = [int(k) for k in b.kf_ids]
+        prev = max((i for i in range(nk) if kf_ids[i] < kf_ids[slot]),
+                   key=lambda i: kf_ids[i])
+        frames = [self.frame_of(db.keyframes[k].t) for k in b.kf_ids]
+        truth = self.gt_poses[frames]
+        tc = np.array([_centre(T) for T in truth])
+        if args.save:
+            np.savez_compressed(
+                args.save, truth=truth, frames=frames,
+                stage2_pose_fixed=captured["s2"][0].numpy(),
+                anchor_slot=slot, anchor_sqrt_info=captured["info"][0].numpy(),
+                iterations=captured["iterations"],
+                cg_iters=captured["cg_iters"],
+                **{f: t[0].numpy()
+                   for f, t in captured["p"]._asdict().items()})
+        f = frames[slot]
+        ahead = self.gt[min(f + 1, len(self.gt) - 1)] - self.gt[max(f - 1, 0)]
+        ahead = ahead / np.linalg.norm(ahead)
+
+        def measure(poses):
+            c = np.array([_centre(T) for T in poses[:nk]])
+            step = (c[slot] - c[prev]) - (tc[slot] - tc[prev])
+            return (float(np.linalg.norm(c[slot] - tc[slot])),
+                    float(step @ ahead), sim3_scale(c, tc))
+
+        def show(name, poses, cost=None):
+            err, along, scale = out[name] = measure(poses)
+            print(f"  {name}: newest keyframe off by {err:.4f} m, its step "
+                  f"{along:+.5f} m along the track, window scale "
+                  f"{scale:.5f}" + ("" if cost is None else
+                                    f", final cost {cost:.6g}"), flush=True)
+
+        def solve(over, stages="both", anchor=True):
+            """``stages``: "1" (stage 1), "both" (as the mapper runs them)
+            or "2" (stage 2 alone, anchored at its start unless not
+            ``anchor``), on P with the fields of ``over``."""
+            q = ba.BAProblem(**{
+                k: torch.from_numpy(np.ascontiguousarray(v))[None]
+                for k, v in {**P, **over}.items()})
+            it, cg = captured["iterations"], captured["cg_iters"]
+            info = captured["info"].double()
+            if stages == "both":
+                res = ba.two_stage_lm(q, captured["s2"], captured["slot"],
+                                      info, iterations=it, cg_iters=cg)
+            else:
+                if stages == "2":
+                    q = q._replace(
+                        pose_fixed=captured["s2"],
+                        pr_idx=captured["slot"].to(torch.int64)[:, None],
+                        pr_meas=q.poses[:, slot:slot + 1],
+                        pr_sqrt_info=info[:, None],
+                        pr_valid=torch.tensor([[anchor]]))
+                res = ba.lm_run(q, it, cg, ba.HUBER_DELTA, 1e-4)
+            return res.poses[0].numpy(), float(res.cost[0])
+
+        out = {}
+        print(f"split keyframe {args.replay_kf}'s local BA (K {nk}, M {nm}; "
+              f"true frames {frames[0]}-{frames[-1]}):", flush=True)
+        show("before the BA", P["poses"])
+        show("after stage 1", *solve({}, "1"))
+        show("after stage 2", *solve({}))
+
+        # depths against the points triangulated through the true poses
+        obs = (P["obs_kf"], P["obs_mp"], P["obs_meas"], P["obs_sqrt_info"],
+               P["obs_valid"])
+        Xt, ok = triangulate_at(np.concatenate([truth, P["poses"][nk:]]),
+                                P["points"], *obs)
+        ok[nm:] = False
+        Te, Tt = P["poses"][slot], truth[slot]
+
+        def depth_ratio(est, true):
+            ze = est @ Te[2, :3] + Te[2, 3]
+            zt = true @ Tt[2, :3] + Tt[2, 3]
+            return float(np.median(ze / zt)) if len(ze) else float("nan")
+
+        # the new points (two observations, not yet in the BA) through
+        # their keyframes' true poses
+        new = [db.map_points[i] for i in sorted(captured.get("new", ()))
+               if i in db.map_points]
+        est = np.array([mp.position for mp in new]).reshape(-1, 3)
+        true = est[:0]
+        if new:
+            kfs = sorted({k for mp in new for k in mp.observations})
+            at = {k: i for i, k in enumerate(kfs)}
+            rows = [(j, at[k], int(kp)) for j, mp in enumerate(new)
+                    for k, kp in sorted(mp.observations.items())]
+            j, kf_at, kp = (np.array(c) for c in zip(*rows))
+            bear = np.array([db.keyframes[kfs[a]].shared.bearings[k]
+                             for a, k in zip(kf_at, kp)])
+            Xn, okn = triangulate_at(
+                self.gt_poses[[self.frame_of(db.keyframes[k].t)
+                               for k in kfs]], est, kf_at, j,
+                bear[:, :2] / bear[:, 2:3], np.ones(len(j)),
+                np.ones(len(j), bool))
+            est, true = est[okn], Xn[okn]
+        seen_now = np.unique(P["obs_mp"][P["obs_valid"]
+                                         & (P["obs_kf"] == slot)])
+        seen_now = seen_now[ok[seen_now]]
+        window = np.flatnonzero(ok)
+        for name, e, t in (
+                ("new points", est, true),
+                ("points the newest keyframe sees", P["points"][seen_now],
+                 Xt[seen_now]),
+                ("window points", P["points"][window], Xt[window])):
+            print(f"  {name}: median depth in the newest keyframe "
+                  f"{depth_ratio(e, t):.5f} x the truth's ({len(e)} "
+                  f"points)", flush=True)
+
+        # reprojection residuals at the truth, by pyramid level (pixels)
+        o = np.flatnonzero(P["obs_valid"] & ok[P["obs_mp"]])
+        T = truth[P["obs_kf"][o]]
+        pc = np.einsum("nij,nj->ni", T[:, :3, :3], Xt[P["obs_mp"][o]]) \
+            + T[:, :3, 3]
+        kf0 = db.keyframes[b.kf_ids[0]]
+        focal = float(kf0.shared.camera.get_focal_length())
+        res_px = (pc[:, :2] / pc[:, 2:3] - P["obs_meas"][o]) * focal
+        level = np.array([
+            db.keyframes[b.kf_ids[k]].shared.octave[
+                int(np.flatnonzero(db.keyframes[b.kf_ids[k]].map_points
+                                   == int(b.mp_ids[m]))[0])]
+            for k, m in zip(P["obs_kf"][o], P["obs_mp"][o])])
+        for lv in np.unique(level):
+            sel = level == lv
+            mx, my = res_px[sel].mean(0)
+            print(f"  level {lv}: {int(sel.sum())} observations, mean "
+                  f"residual at the truth ({mx:+.4f}, {my:+.4f}) px, RMS "
+                  f"{np.sqrt((res_px[sel] ** 2).sum(1).mean()):.4f}",
+                  flush=True)
+
+        # from the truth
+        keep = ok & ~P["points_fixed"]
+        start = {"poses": np.concatenate([truth, P["poses"][nk:]]),
+                 "points": np.where(keep[:, None], Xt, P["points"]),
+                 "points_fixed": P["points_fixed"] | ~ok,
+                 "obs_valid": P["obs_valid"] & ok[P["obs_mp"]]}
+        print(f"from the truth ({int(keep[:nm].sum())} of {nm} points "
+              f"triangulated through the true poses):", flush=True)
+        show("the truth", start["poses"])
+        show("both stages as the mapper runs them", *solve(start))
+        exact = P["pe_meas"].copy()
+        for e in np.flatnonzero(P["pe_valid"]):
+            a, bb = P["pe_a"][e], P["pe_b"][e]
+            exact[e] = start["poses"][bb] @ np.linalg.inv(start["poses"][a])
+
+        def sideways(x):
+            # the true edges with a sideways (camera x) part: the measured
+            # one (None) or x metres a step
+            m = exact.copy()
+            m[:, 0, 3] = P["pe_meas"][:, 0, 3] if x is None \
+                else m[:, 0, 3] + x
+            return {"pe_meas": m}
+
+        valid = P["pe_valid"]
+        side = (P["pe_meas"] - exact)[valid, 0, 3]
+        print(f"  the odometry edges' sideways error: mean "
+              f"{1e3 * side.mean():+.3f} mm a step over {int(valid.sum())} "
+              f"edges", flush=True)
+        for name, over in (
+                ("every term", {}),
+                ("no odometry edges", {"pe_valid": np.zeros_like(valid)}),
+                ("no anchor", None),
+                ("odometry edges at the truth", {"pe_meas": exact}),
+                ("odometry edges at the truth but their measured sideways "
+                 "part", sideways(None)),
+                ("odometry edges at the truth + 5 mm sideways",
+                 sideways(0.005)),
+                ("odometry edges at the truth - 5 mm sideways",
+                 sideways(-0.005))):
+            show(f"stage 2 alone, {name}",
+                 *solve({**start, **(over or {})}, "2", over is not None))
+        return out
 
     def replay_global(self):
         """Capture the first global BA's problem, stop the session, and
