@@ -9,7 +9,10 @@ its plain PyTorch version on the card (at the main path's shape, the
 vocabulary's and ragged edge shapes, one launch per call) and times it
 beside its bound, drives the port's main path at the device-SLAM bench's
 settings twice: ``slam_tpu_torch.pipeline.device_vo.BatchedDeviceVO`` over
-64 frames of exact odometry, then ``slam_tpu_torch.DeviceSlam`` (loop
+64 frames of exact odometry (each chunk a replay of its captured CUDA
+graph), the same frames again with every chunk's outputs, snapshot rows
+and state held bit-equal to the eager twin (``_advance_eager``) and both
+timed, then ``slam_tpu_torch.DeviceSlam`` (loop
 closure included) over 128 frames of biased odometry beside a control
 session that applies no closure; it checks both against the synthetic
 ground truth and compares the front-end on CPU and card. Then it drives the
@@ -374,8 +377,12 @@ def phase_main_path(cam, worlds, images, deltas):
                            deltas[:, c * CHUNK:(c + 1) * CHUNK])
                 for c in range(n_chunks)]
 
-    run(fresh(), 1)                           # warm-up: CUDA init, caches
-    vo = fresh()                              # set-up stays out of the wall
+    # warm-up: the first chunk runs eagerly (CUDA init, caches, the
+    # kernel's build), the second captures the chunk's CUDA graph; reset
+    # keeps the graph, so every timed chunk is a replay
+    vo = fresh()
+    run(vo, 2)
+    vo.reset(p0)
     torch.cuda.synchronize()
     hamming_argmin.launches = 0
     t0 = time.perf_counter()
@@ -424,6 +431,126 @@ def phase_main_path(cam, worlds, images, deltas):
     assert launches == FRAMES, launches
     fps = S * FRAMES / wall
     return dict(wall=wall, fps=fps, launches=launches)
+
+
+def device_activity(prof):
+    """Device activities of a ``torch.profiler`` run: their count, the
+    kernels among them (every activity but copies and fills), the busy time
+    (the union of their intervals) and the span from the first start to the
+    last end, both in ms."""
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in events
+               if not e.name.startswith(("Memcpy", "Memset"))]
+    busy, end = 0.0, float("-inf")
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    for s, e in spans:
+        if s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    span = (max(e for _, e in spans) - spans[0][0]) if spans else 0.0
+    return dict(activities=len(events), kernels=len(kernels),
+                busy_ms=busy / 1e3, span_ms=span / 1e3)
+
+
+def phase_chunk_graph(cam, worlds, images, deltas, smi):
+    """``BatchedDeviceVO.advance`` (the chunk as one CUDA graph, captured
+    from the second chunk on) against its eager twin ``_advance_eager`` on
+    the main path's 64 frames: every ``VOStepOut``, ``SnapOut`` and
+    ``VOState`` field bit-equal after every chunk. Then the same instance,
+    reset, replays all 8 chunks: the replayed chunk wall beside the eager
+    one (host clock between synchronises), the capture's time, K1's count,
+    the peak memory of each, and one replay under ``torch.profiler``: its
+    device kernels, their busy time, the idle share of their span and the
+    busy share of the unprofiled replayed wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from slam_tpu_torch.ops.hamming_argmin import hamming_argmin
+    from slam_tpu_torch.pipeline.device_vo import (BatchedDeviceVO,
+                                                   DeviceVOConfig)
+
+    cfg = DeviceVOConfig(**CFG)
+    p0 = np.stack([w.poses_cw[0] for w in worlds]).astype(np.float32)
+    n = FRAMES // CHUNK
+
+    def chunk(c):
+        return images[:, c * CHUNK:(c + 1) * CHUNK], \
+            deltas[:, c * CHUNK:(c + 1) * CHUNK]
+
+    def fresh():
+        vo = BatchedDeviceVO(cfg, batch=S, camera=cam, device="cuda")
+        vo.reset(p0)
+        return vo
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    eager, graph = fresh(), fresh()
+    eager_s, first_s, fields = [], [], 0
+    for c in range(n):
+        want, t = timed(lambda: eager._advance_eager(*chunk(c)))
+        eager_s.append(t)
+        got, t = timed(lambda: graph.advance(*chunk(c)))
+        first_s.append(t)
+        for what, a, b in (("outputs", got, want),
+                           ("snapshots", graph.last_snaps, eager.last_snaps),
+                           ("state", graph.state, eager.state)):
+            bad = [f for f, x, y in zip(a._fields, a, b)
+                   if not torch.equal(x, y)]
+            assert not bad, (f"chunk {c}: replay differs from the eager "
+                             f"twin in {what} {bad}")
+            fields += len(a._fields)
+    captures = graph._chunks[0].capture_seconds
+    assert len(captures) == 1, captures
+    # every chunk a replay: the same instance from the start
+    graph.reset(p0)
+    torch.cuda.reset_peak_memory_stats()
+    hamming_argmin.launches = 0
+    replay_s = [timed(lambda: graph.advance(*chunk(c)))[1] for c in range(n)]
+    assert hamming_argmin.launches == FRAMES, hamming_argmin.launches
+    replay_peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    eager.reset(p0)
+    timed(lambda: eager._advance_eager(*chunk(0)))
+    eager_peak = torch.cuda.max_memory_allocated()
+    graph.reset(p0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        timed(lambda: graph.advance(*chunk(0)))
+    act = device_activity(prof)
+    assert act["activities"], "the profiler recorded no device activity"
+    eager_med = float(np.median(eager_s))
+    replay_med = float(np.median(replay_s))
+    print(f"chunk graph: replay bit-equal to the eager twin in all {fields} "
+          f"output, snapshot and state fields over {n} chunks of {S} x "
+          f"{CHUNK} frames at {WIDTH}x{HEIGHT}; eager chunk wall median "
+          f"{eager_med:.4f} s ({min(eager_s):.4f}-{max(eager_s):.4f}) = "
+          f"{S * CHUNK / eager_med:.2f} keyframes/s; replayed chunk wall "
+          f"median {replay_med:.4f} s ({min(replay_s):.4f}-"
+          f"{max(replay_s):.4f}) = {S * CHUNK / replay_med:.2f} keyframes/s; "
+          f"first pass (eager, capture + replay, replays) "
+          + ", ".join(f"{t:.4f}" for t in first_s)
+          + f" s; capture {captures[0]:.3f} s; one replay under the "
+          f"profiler ran {act['kernels']} device kernels "
+          f"({act['activities']} device activities), busy "
+          f"{act['busy_ms']:.3f} ms of a {act['span_ms']:.3f} ms device span "
+          f"(idle {1 - act['busy_ms'] / act['span_ms']:.2%} of it; busy = "
+          f"{act['busy_ms'] / 1e3 / replay_med:.2%} of the unprofiled "
+          f"replayed wall); peak allocated eager {eager_peak / 2**30:.3f} "
+          f"GiB, replay {replay_peak / 2**30:.3f} GiB (reserved "
+          f"{reserved / 2**30:.3f} GiB); K1 launches over the replays "
+          f"{FRAMES}; on {smi}")
+    return dict(eager_s=eager_s, replay_s=replay_s, first_s=first_s,
+                capture_s=captures[0], eager_peak=eager_peak,
+                replay_peak=replay_peak, reserved=reserved, **act)
 
 
 def make_slam_inputs(cam):
@@ -1196,6 +1323,7 @@ def main():
     print(f"main path: {S} sequences x {FRAMES} frames at {WIDTH}x{HEIGHT} in "
           f"{main_path['wall']:.3f} s = {main_path['fps']:.2f} keyframes/s "
           f"on {smi}")
+    phase_chunk_graph(cam, worlds, images, deltas, smi)
     slam = phase_device_slam(cam, *make_slam_inputs(cam), smi)
     phase_frontend(images)
     ia_inputs = make_interactive_inputs(cam)

@@ -18,7 +18,6 @@ pinned host memory behind the work.
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -26,8 +25,8 @@ import torch
 
 from slam_tpu_torch.ops import detector as det
 from slam_tpu_torch.ops import orb
-from slam_tpu_torch.ops.pyramid import (build_pyramid, level_sizes,
-                                        pyramid_operators)
+from slam_tpu_torch.ops.pyramid import (build_pyramid, device_operators,
+                                        level_sizes)
 from slam_tpu_torch.params import ORB_PATCH_RADIUS, StaticSettings
 from slam_tpu_torch.precision import pin_full_f32
 from slam_tpu_torch.utils.timer import timed
@@ -62,16 +61,10 @@ def min_distances(settings: StaticSettings, sizes) -> List[int]:
     return out
 
 
-@functools.lru_cache(maxsize=8)
 def _operators(spec: FrontendSpec, device: torch.device):
     """Band matrices of one geometry, moved to ``device`` once."""
-    sizes, resize_np, blur_np = pyramid_operators(spec.width, spec.height,
-                                                  spec.scale_factors)
-
-    def put(pairs):
-        return [(torch.from_numpy(r).to(device), torch.from_numpy(c).to(device))
-                for r, c in pairs]
-    return sizes, put(resize_np), put(blur_np)
+    return device_operators(spec.width, spec.height, spec.scale_factors,
+                            device)
 
 
 def extract(image: torch.Tensor, tracked_xy: torch.Tensor,

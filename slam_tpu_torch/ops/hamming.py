@@ -12,7 +12,10 @@ is exact in float32, and stays exact under TF32 too; an int8 product would
 wrap instead.
 
 ``hamming_matrix_host`` is the NumPy popcount-table matrix that the host
-closure stack (``pipeline/device_slam.py``) runs on uint32 descriptors.
+closure stack (``pipeline/device_slam.py``) runs on uint32 descriptors;
+``hamming_distance`` the NumPy distance of descriptor pairs, and
+``hamming_matrix_popcount`` the XOR-and-popcount reference of
+``hamming_matrix``.
 """
 from __future__ import annotations
 
@@ -43,6 +46,20 @@ def hamming_matrix(desc1: torch.Tensor, desc2: torch.Tensor) -> torch.Tensor:
     return ((256.0 - dot) * 0.5).to(torch.int32)
 
 
+def hamming_matrix_popcount(desc1: torch.Tensor, desc2: torch.Tensor
+                            ) -> torch.Tensor:
+    """Reference path of :func:`hamming_matrix`, with the same results: XOR
+    and a population count (a SWAR bit count in int64, as torch has no
+    popcount). (..., A, 8) x (..., B, 8) int32 -> (..., A, B) int32."""
+    x = (desc1[..., :, None, :] ^ desc2[..., None, :, :]).to(torch.int64)
+    x = x & 0xFFFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    x = ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+    return torch.sum(x, dim=-1).to(torch.int32)
+
+
 def mutual_nn(dist: torch.Tensor, thr: int, ratio: float = 1.0):
     """Mutual-nearest selection over gated (..., A, B) distances.
 
@@ -61,6 +78,15 @@ def mutual_nn(dist: torch.Tensor, thr: int, ratio: float = 1.0):
         ok = ok & (d_best.to(torch.float32)
                    < ratio * d_second.to(torch.float32))
     return nn_ab, ok
+
+
+def hamming_distance(d1: np.ndarray, d2: np.ndarray) -> np.ndarray:
+    """Host-side Hamming distance of uint32 descriptors (..., 8), elementwise
+    over the leading dimensions (NumPy popcount)."""
+    d1 = np.asarray(d1, dtype=np.uint32)
+    d2 = np.asarray(d2, dtype=np.uint32)
+    x = (d1 ^ d2).view(np.uint8)
+    return np.unpackbits(x, axis=-1).sum(axis=-1, dtype=np.int32)
 
 
 @functools.lru_cache(maxsize=1)

@@ -15,6 +15,8 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from slam_tpu_torch.precision import pin_full_f32
+
 
 def level_sizes(width: int, height: int, scale_factors: Sequence[float]
                 ) -> List[Tuple[int, int]]:
@@ -92,3 +94,50 @@ def build_pyramid(image: torch.Tensor, resize_ops, blur_ops):
     blurred = [_quantise(g_rows @ lvl @ g_cols.T)
                for (g_rows, g_cols), lvl in zip(blur_ops, levels)]
     return levels, blurred
+
+
+@functools.lru_cache(maxsize=8)
+def device_operators(width: int, height: int, scale_key: tuple,
+                     device: torch.device):
+    """:func:`pyramid_operators` with the band matrices moved to ``device``
+    once: (sizes, resize (rows, cols) tensor pairs, blur pairs)."""
+    sizes, resize_np, blur_np = pyramid_operators(width, height, scale_key)
+
+    def put(pairs):
+        return [(torch.from_numpy(r).to(device), torch.from_numpy(c).to(device))
+                for r, c in pairs]
+    return sizes, put(resize_np), put(blur_np)
+
+
+class ImagePyramid:
+    """Pyramid builder for a fixed image geometry, the reference's
+    ``ImagePyramid`` interface (image_pyramid.hpp:16-30): ``update()``
+    recomputes the levels for a new frame; ``levels``/``blurred`` hold the
+    plain and blurred (H_l, W_l) float32 images per level on ``device``."""
+
+    def __init__(self, settings, width: int, height: int, device="cuda"):
+        self.scale_factors = tuple(float(s) for s in settings.scaleFactors)
+        self.width = width
+        self.height = height
+        self.device = torch.device(device)
+        self.sizes, self._resize_ops, self._blur_ops = device_operators(
+            width, height, self.scale_factors, self.device)
+        self.levels: List[torch.Tensor] = []
+        self.blurred: List[torch.Tensor] = []
+
+    def update(self, image) -> "ImagePyramid":
+        """Build the levels of an (H, W) image (NumPy or tensor)."""
+        if not isinstance(image, torch.Tensor):
+            image = torch.from_numpy(np.asarray(image))
+        img = image.to(device=self.device, dtype=torch.float32)
+        if tuple(img.shape) != (self.height, self.width):
+            raise ValueError(f"image {tuple(img.shape)}, pyramid built for "
+                             f"{(self.height, self.width)}")
+        pin_full_f32()
+        self.levels, self.blurred = build_pyramid(img, self._resize_ops,
+                                                  self._blur_ops)
+        return self
+
+    @property
+    def num_levels(self) -> int:
+        return len(self.sizes)

@@ -3,7 +3,9 @@ slam_tpu/pipeline/device_vo.py).
 
 S independent sequences advance together: every tensor of the state carries
 a leading batch dimension S where the JAX package ``vmap``s, and the frames
-of a chunk run in a Python loop where it ``scan``s. The landmark store
+of a chunk run in a Python loop where it ``scan``s. Where it ``jit``s the
+chunk into one program, a card captures the chunk once as a CUDA graph and
+replays it (``_ChunkGraph``). The landmark store
 (static capacity + masks) stays on the device between chunks. Per frame:
 fused ORB front-end, projection-gated Hamming mutual-NN map matching,
 pose-only LM, anchored-depth refinement, two-view landmark creation,
@@ -18,6 +20,8 @@ drops with ``mode="drop"`` write to a scratch row M of a temporary buffer.
 """
 from __future__ import annotations
 
+import contextlib
+import time
 from typing import Mapping, NamedTuple, Optional
 
 import numpy as np
@@ -25,6 +29,7 @@ import torch
 
 from slam_tpu_torch.geometry.camera import PinholeCamera
 from slam_tpu_torch.ops import ba, lie
+from slam_tpu_torch.ops import hamming_argmin as k1_ops
 from slam_tpu_torch.ops.bow import make_codebook
 from slam_tpu_torch.ops.camera import pack_camera, project, unproject
 from slam_tpu_torch.ops.frontend import FrontendSpec, extract, min_distances
@@ -170,6 +175,15 @@ def _resolve_settings(cfg: DeviceVOConfig,
     return settings
 
 
+def _on_device(x: torch.Tensor, values):
+    """``values`` as a tensor on ``x``'s device: a Python scalar becomes a
+    0-d tensor filled there, so that no indexed write copies a host scalar
+    to the card (a copy that a CUDA graph capture refuses)."""
+    if isinstance(values, torch.Tensor):
+        return values
+    return torch.full((), values, dtype=x.dtype, device=x.device)
+
+
 def _set_rows(x: torch.Tensor, slot: torch.Tensor, values, col=None):
     """``x.at[slot(, col)].set(values, mode="drop")`` per sequence: x (S, M,
     ...), slot (S, N) in [0, M]; row M is a scratch row that is dropped.
@@ -178,16 +192,16 @@ def _set_rows(x: torch.Tensor, slot: torch.Tensor, values, col=None):
     ext = torch.cat([x, x[:, :1]], dim=1)
     b = torch.arange(S, device=x.device)[:, None]
     if col is None:
-        ext[b, slot] = values
+        ext[b, slot] = _on_device(x, values)
     else:
-        ext[b, slot, col[:, None]] = values
+        ext[b, slot, col[:, None]] = _on_device(x, values)
     return ext[:, :M]
 
 
 def _set_slot(x: torch.Tensor, slot: torch.Tensor, values):
     """``x.at[slot].set(values)`` per sequence: x (S, R, ...), slot (S,)."""
     x = x.clone()
-    x[torch.arange(x.shape[0], device=x.device), slot] = values
+    x[torch.arange(x.shape[0], device=x.device), slot] = _on_device(x, values)
     return x
 
 
@@ -936,19 +950,204 @@ def state_to_numpy(state: VOState) -> dict:
         out[name] = a
     return out
 
+def _chunk_snaps(cfg: DeviceVOConfig, st: VOState, f0: torch.Tensor,
+                 T: int) -> Optional[SnapOut]:
+    """Ring rows stored during the chunk that started at frames ``f0``
+    (S,): the multiples of loop_every in [f0, f0 + T), exactly T //
+    loop_every of them."""
+    if cfg.loop_every <= 0:
+        return None
+    le = cfg.loop_every
+    assert T % le == 0, (
+        f"chunk length {T} not divisible by loop_every={le}: "
+        "the snapshot mirror needs a static stored-slot count")
+    first = torch.div(f0 + le - 1, le, rounding_mode="floor")
+    idx = first[:, None] + torch.arange(T // le, device=f0.device)
+    slots = torch.remainder(idx, cfg.loop_slots).to(torch.int64)
+    return SnapOut(slot=slots, frame=take(st.sig_frame, slots),
+                   pc=take(st.sig_pc, slots), desc=take(st.sig_desc, slots),
+                   obs=take(st.sig_obs, slots),
+                   pvalid=take(st.sig_pvalid, slots),
+                   pose=take(st.sig_pose, slots),
+                   octave=take(st.sig_octave, slots))
+
+
+def _copy_fields(dst, src) -> None:
+    """Copy a NamedTuple of tensors into buffers of the same shapes and
+    dtypes. A mismatch raises before anything is copied: ``copy_`` would
+    broadcast or convert."""
+    for name, d, s in zip(dst._fields, dst, src):
+        if d.shape != s.shape or d.dtype != s.dtype:
+            raise ValueError(f"{name}: got {tuple(s.shape)} {s.dtype}, the "
+                             f"buffer holds {tuple(d.shape)} {d.dtype}")
+    for d, s in zip(dst, src):
+        if d is not s:
+            d.copy_(s)
+
+
+def _clone(nt):
+    return type(nt)(*(t.clone() for t in nt))
+
+
+class _Shape:
+    """The fixed buffers of one chunk shape: the inputs (S, T, H, W) and
+    (S, T, 4, 4), the stacked outputs and snapshot rows, and the graph
+    captured over them."""
+
+    def __init__(self, images: torch.Tensor, odom: torch.Tensor, device):
+        self.images = torch.empty(images.shape, dtype=images.dtype,
+                                  device=device)
+        self.odom = torch.empty(odom.shape, dtype=torch.float32,
+                                device=device)
+        self.out: Optional[VOStepOut] = None
+        self.snaps: Optional[SnapOut] = None
+        self.warm = False
+        self.graph = None
+        self.k1_launches = 0
+
+
+def _copy_in(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """Host or device tensor into a fixed input buffer; from the host
+    through pinned memory, without waiting for the card."""
+    if dst.shape != src.shape:
+        raise ValueError(f"chunk input {tuple(src.shape)} does not fit the "
+                         f"buffer {tuple(dst.shape)}")
+    if dst.is_cuda and not src.is_cuda:
+        pinned = torch.empty(src.shape, dtype=dst.dtype, pin_memory=True)
+        pinned.copy_(src)
+        dst.copy_(pinned, non_blocking=True)
+    else:
+        dst.copy_(src)
+
+
+class _ChunkGraph:
+    """One shard's chunk program, the counterpart of the JAX package's
+    ``jax.jit(jax.vmap(chunk))``: T frame steps with a window BA after
+    every ``window_ba_every`` of them, then the snapshot rows, over fixed
+    buffers. ``self.state`` holds the shard's state and every chunk updates
+    it in place; each chunk shape (T, H, W) has its own input and output
+    buffers (:class:`_Shape`).
+
+    The chunk runs eagerly on the CPU, for the first chunk of a shape on a
+    card (the warm-up that fills the cached device constants, the BLAS
+    handles and the kernel's build), and whenever the caller asks for the
+    eager twin. From the second chunk of a shape on a card it is one CUDA
+    graph, captured on a side stream into this shard's private memory pool
+    and replayed on the current stream. A failed capture or replay raises;
+    nothing carries on eagerly. Capture counts the K1 launches the graph
+    holds, and each replay adds them to ``hamming_argmin.launches``."""
+
+    def __init__(self, step, cfg: DeviceVOConfig, focal: float,
+                 state: VOState):
+        self._step = step
+        self.cfg = cfg
+        self._focal = focal
+        self.state = state
+        self.device = state.pose_cw.device
+        self._shapes = {}
+        self._pool = None
+        self._stream = None
+        self.capture_seconds = []
+
+    def chunk(self, state: VOState, images: torch.Tensor,
+              odom: torch.Tensor):
+        """The chunk as a function: (state, (S, T, H, W), (S, T, 4, 4)) ->
+        (state, VOStepOut stacked to (S, T, ...), SnapOut or None). No
+        value is read back to the host."""
+        cfg = self.cfg
+        T = images.shape[1]
+        G = cfg.window_ba_every
+        if cfg.window > 0:
+            assert T % G == 0, (
+                f"chunk length {T} not divisible by window_ba_every={G}")
+        f0 = state.frame_idx
+        outs = []
+        for t in range(T):
+            state, out = self._step(state, images[:, t], odom[:, t])
+            outs.append(out)
+            if cfg.window > 0 and (t + 1) % G == 0:
+                state = _window_ba(state, cfg, self._focal)
+        out = VOStepOut(*(torch.stack(x, dim=1) for x in zip(*outs)))
+        return state, out, _chunk_snaps(cfg, state, f0, T)
+
+    def load(self, state: VOState) -> None:
+        """Copy ``state`` into this shard's state buffers."""
+        _copy_fields(self.state, state)
+
+    def _run_into(self, b: _Shape) -> None:
+        st, out, snaps = self.chunk(self.state, b.images, b.odom)
+        if b.out is None:                    # eager, never inside a capture
+            b.out = VOStepOut(*(torch.empty_like(t) for t in out))
+            if snaps is not None:
+                b.snaps = SnapOut(*(torch.empty_like(t) for t in snaps))
+        _copy_fields(b.out, out)
+        if snaps is not None:
+            _copy_fields(b.snaps, snaps)
+        _copy_fields(self.state, st)
+
+    def _capture(self, b: _Shape) -> None:
+        t0 = time.perf_counter()
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._stream = torch.cuda.Stream(self.device)
+        graph = torch.cuda.CUDAGraph()
+        before = k1_ops.hamming_argmin.launches
+        with torch.cuda.graph(graph, pool=self._pool, stream=self._stream):
+            self._run_into(b)
+        with k1_ops.COUNT_LOCK:
+            # the wrapper counted the launches it recorded; none ran
+            b.k1_launches = k1_ops.hamming_argmin.launches - before
+            k1_ops.hamming_argmin.launches -= b.k1_launches
+        b.graph = graph
+        torch.cuda.synchronize(self.device)
+        self.capture_seconds.append(time.perf_counter() - t0)
+
+    def run(self, images: torch.Tensor, odom: torch.Tensor,
+            replay: bool) -> _Shape:
+        """Copy one chunk's inputs in and run it (replayed where it can be
+        and ``replay`` is set); the results are in the returned buffers and
+        ``self.state`` until the next chunk of the same shape."""
+        key = (tuple(images.shape), images.dtype)
+        b = self._shapes.get(key)
+        if b is None:
+            b = self._shapes[key] = _Shape(images, odom, self.device)
+        on_card = self.device.type == "cuda"
+        with torch.cuda.device(self.device) if on_card \
+                else contextlib.nullcontext():
+            _copy_in(b.images, images)
+            _copy_in(b.odom, odom)
+            if on_card and replay and b.warm:
+                if b.graph is None:
+                    self._capture(b)
+                b.graph.replay()
+                with k1_ops.COUNT_LOCK:
+                    k1_ops.hamming_argmin.launches += b.k1_launches
+            else:
+                self._run_into(b)
+                b.warm = True
+        return b
+
 
 class BatchedDeviceVO:
     """S sequences x T frames per ``advance``; the state stays on
     ``device`` between calls.
 
+    On a card ``advance`` replays one CUDA graph per shard and chunk shape,
+    the counterpart of the JAX package's one-dispatch chunk: the first
+    chunk of a shape runs eagerly as the warm-up, the second captures the
+    graph, and every later one replays it (see :class:`_ChunkGraph`). On
+    the CPU the same buffers are filled eagerly. The outputs, ``last_snaps``
+    and ``state`` are copies that no later chunk changes; setting ``state``,
+    ``reset`` and ``load_state`` copy into the buffers the graph reads.
+
     Multi-device: pass ``mesh`` (``parallel/mesh.make_mesh``; its first
     axis is the data axis) to split the S sequences over its devices. Each
-    shard keeps its own state on its device; ``advance`` enqueues every
-    shard's frames before it waits on any and concatenates the outputs on
-    the first shard's device, which is then ``self.device``. Sequences are
-    independent, so no cross-device math is needed. ``state`` reads back
-    as one :class:`VOState` and takes one when set, so ``DeviceSlam`` and
-    the checkpoints see no difference."""
+    shard keeps its own state and graph on its device; ``advance`` enqueues
+    every shard's chunk before it waits on any and concatenates the outputs
+    on the first shard's device, which is then ``self.device``. Sequences
+    are independent, so no cross-device math is needed. ``state`` reads
+    back as one :class:`VOState` and takes one when set, so ``DeviceSlam``
+    and the checkpoints see no difference."""
 
     def __init__(self, cfg: DeviceVOConfig, batch: int, camera=None,
                  settings: Optional[StaticSettings] = None, device="cuda",
@@ -973,97 +1172,75 @@ class BatchedDeviceVO:
             assert cfg.window >= 2, "window needs >= 2 frames"
             assert cfg.window_ba_every >= 1
         # one step per distinct device: the step holds its constants there
-        self._steps = {}
+        steps = {}
         for dev in shard_devices:
-            if dev not in self._steps:
-                self._steps[dev], spec = make_vo_step(
+            if dev not in steps:
+                steps[dev], spec = make_vo_step(
                     cfg, camera=camera, settings=settings, device=dev)
         self.num_slots = N_TRACKED + sum(spec.budgets)
         self._focal = float(pack_camera(camera)[1][0])
+        n = len(shard_devices)
+        self._chunks = [_ChunkGraph(steps[dev], cfg, self._focal,
+                                    init_state(cfg, self.num_slots,
+                                               batch // n, dev))
+                        for dev in shard_devices]
         self.reset()
 
     @property
     def state(self) -> VOState:
-        """The whole batch's state (on ``self.device``)."""
-        return _cat_shards(self._shards, self.device)
+        """A copy of the whole batch's state on ``self.device``; later
+        chunks do not change it."""
+        return _cat_shards([_clone(c.state) for c in self._chunks],
+                           self.device)
 
     @state.setter
     def state(self, state: VOState) -> None:
-        n = len(self.shard_devices)
+        n = len(self._chunks)
         parts = zip(*(torch.chunk(t, n) for t in state))
-        self._shards = [VOState(*(t.to(dev) for t in part))
-                        for part, dev in zip(parts, self.shard_devices)]
+        for c, part in zip(self._chunks, parts):
+            c.load(VOState(*part))
 
     def reset(self, poses0_cw: Optional[np.ndarray] = None):
         """Re-initialize all sequence states, optionally at (S, 4, 4)
         world->camera start poses."""
-        n = len(self.shard_devices)
-        self._shards = [init_state(self.cfg, self.num_slots, self.batch // n,
-                                   dev) for dev in self.shard_devices]
+        n = len(self._chunks)
+        parts = [None] * n
         if poses0_cw is not None:
-            p = torch.as_tensor(np.asarray(poses0_cw, np.float32))
-            for i, (part, dev) in enumerate(zip(torch.chunk(p, n),
-                                                self.shard_devices)):
-                part = part.to(dev)
-                self._shards[i] = self._shards[i]._replace(
-                    pose_cw=part, prev_pose_cw=part.clone())
+            parts = torch.chunk(torch.as_tensor(
+                np.asarray(poses0_cw, np.float32)), n)
+        for c, part in zip(self._chunks, parts):
+            fresh = init_state(self.cfg, self.num_slots, self.batch // n,
+                               c.device)
+            if part is not None:
+                part = part.to(c.device)
+                fresh = fresh._replace(pose_cw=part, prev_pose_cw=part.clone())
+            c.load(fresh)
         self.last_snaps = None
-
-    def _chunk_snaps(self, st: VOState, f0: torch.Tensor,
-                     T: int) -> Optional[SnapOut]:
-        """Ring rows stored during the chunk: the multiples of loop_every in
-        [f0, f0 + T), exactly T // loop_every of them."""
-        cfg = self.cfg
-        if cfg.loop_every <= 0:
-            return None
-        le = cfg.loop_every
-        assert T % le == 0, (
-            f"chunk length {T} not divisible by loop_every={le}: "
-            "the snapshot mirror needs a static stored-slot count")
-        first = torch.div(f0 + le - 1, le, rounding_mode="floor")
-        idx = first[:, None] + torch.arange(T // le, device=f0.device)
-        slots = torch.remainder(idx, cfg.loop_slots).to(torch.int64)
-        return SnapOut(slot=slots, frame=take(st.sig_frame, slots),
-                       pc=take(st.sig_pc, slots), desc=take(st.sig_desc, slots),
-                       obs=take(st.sig_obs, slots),
-                       pvalid=take(st.sig_pvalid, slots),
-                       pose=take(st.sig_pose, slots),
-                       octave=take(st.sig_octave, slots))
 
     def advance(self, images, odom_deltas) -> VOStepOut:
         """images: (S, T, H, W) uint8; odom_deltas: (S, T, 4, 4). Returns
         per-frame outputs stacked to (S, T, ...). With loop detection on,
-        the ring rows stored during the chunk are in ``self.last_snaps``."""
-        n = len(self.shard_devices)
+        the ring rows stored during the chunk are in ``self.last_snaps``.
+        On a card the chunk is a replayed CUDA graph from the second chunk
+        of a shape on."""
+        return self._advance(images, odom_deltas, replay=True)
+
+    def _advance_eager(self, images, odom_deltas) -> VOStepOut:
+        """:meth:`advance` with every op issued from Python: the graph's
+        twin, for comparison and for profiles by stage."""
+        return self._advance(images, odom_deltas, replay=False)
+
+    def _advance(self, images, odom_deltas, replay: bool) -> VOStepOut:
+        n = len(self._chunks)
         images = torch.chunk(torch.as_tensor(images), n)
         odom = torch.chunk(torch.as_tensor(np.asarray(odom_deltas,
                                                       np.float32)), n)
-        images = [x.to(d) for x, d in zip(images, self.shard_devices)]
-        odom = [x.to(d) for x, d in zip(odom, self.shard_devices)]
-        T = images[0].shape[1]
-        G = self.cfg.window_ba_every
-        if self.cfg.window > 0:
-            assert T % G == 0, (
-                f"chunk length {T} not divisible by window_ba_every={G}")
-        f0 = [st.frame_idx for st in self._shards]
-        outs = [[] for _ in range(n)]
-        # frame by frame across the shards: every shard's work is enqueued
-        # before any result is read
-        for t in range(T):
-            for i, dev in enumerate(self.shard_devices):
-                self._shards[i], out = self._steps[dev](
-                    self._shards[i], images[i][:, t], odom[i][:, t])
-                outs[i].append(out)
-                if self.cfg.window > 0 and (t + 1) % G == 0:
-                    self._shards[i] = _window_ba(self._shards[i], self.cfg,
-                                                 self._focal)
-        snaps = [self._chunk_snaps(st, f, T)
-                 for st, f in zip(self._shards, f0)]
-        per_shard = [VOStepOut(*(torch.stack(x, dim=1) for x in zip(*o)))
-                     for o in outs]
-        self.last_snaps = None if snaps[0] is None else _cat_shards(
-            snaps, self.device)
-        return _cat_shards(per_shard, self.device)
+        # every shard's chunk is enqueued before any result is read
+        shapes = [c.run(x, d, replay)
+                  for c, x, d in zip(self._chunks, images, odom)]
+        self.last_snaps = None if shapes[0].snaps is None else _cat_shards(
+            [_clone(b.snaps) for b in shapes], self.device)
+        return _cat_shards([_clone(b.out) for b in shapes], self.device)
 
     def save_state(self, path: str) -> None:
         """Checkpoint the session state to an ``.npz`` with the JAX

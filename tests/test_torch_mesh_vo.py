@@ -37,8 +37,8 @@ def test_sharded_matches_unsharded(tmp_path):
 
     mesh = make_mesh(8, axis_names=("data",), devices=CPU8)
     sharded = BatchedDeviceVO(cfg, batch=S, camera=cam, mesh=mesh)
-    assert len(sharded.shard_devices) == 8 and len(sharded._shards) == 8
-    assert sharded._shards[0].pose_cw.shape[0] == 1
+    assert len(sharded.shard_devices) == 8 and len(sharded._chunks) == 8
+    assert sharded._chunks[0].state.pose_cw.shape[0] == 1
     out_sharded = sharded.advance(images, deltas)
     np.testing.assert_allclose(out_sharded.pose_cw.numpy(),
                                out_plain.pose_cw.numpy(), rtol=1e-5,

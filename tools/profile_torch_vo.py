@@ -6,15 +6,22 @@
 
 Runs ``chip_smoke.py``'s main-path configuration (S=4, 640x480, the
 device-SLAM bench's settings) and measures one 8-frame chunk, always the
-same one (``--chunk``), each time in a fresh session advanced to it:
+same one (``--chunk``), each time in a session advanced to it. On the eager
+twin (``BatchedDeviceVO._advance_eager``, every op issued from Python):
 
   1. its wall, unprofiled: host clock between two synchronises, ``--reps``
-     times;
+     times, each in a fresh session;
   2. per-stage wall: each stage of the frame step (and the window BA) timed
      between a synchronise before and after it;
   3. a ``torch.profiler`` trace: device busy time (the union of the CUDA
      activities' intervals), their count, and the top device rows. The idle
      share is 1 - busy / the median unprofiled wall of step 1.
+
+Then on the replayed CUDA graph (``advance``; one instance whose graph was
+captured in a warm-up, reset and advanced to the chunk by replays before
+each measurement): the chunk's unprofiled wall ``--reps`` times, and one
+replay under ``torch.profiler`` with its device busy time, activity and
+kernel counts and idle share against the replayed wall.
 
 Prints a summary and writes everything to ``--out`` as JSON. Needs one card.
 """
@@ -38,19 +45,6 @@ STAGES = ("extract", "_match_map", "_pose_ba", "_refine_depths",
           "_create_landmarks", "hamming_argmin", "_window_ba")
 
 
-def _busy_us(intervals):
-    """Length of the union of (start, end) intervals."""
-    total, end = 0.0, float("-inf")
-    for s, e in sorted(intervals):
-        if s > end:
-            total += e - s
-            end = e
-        elif e > end:
-            total += e - end
-            end = e
-    return total
-
-
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--chunk", type=int, default=1)
@@ -69,23 +63,31 @@ def main():
         return images[:, c * C:(c + 1) * C], deltas[:, c * C:(c + 1) * C]
 
     def session():
-        """A fresh session advanced to the measured chunk."""
+        """A fresh session advanced to the measured chunk, eagerly."""
         vo = BatchedDeviceVO(cfg, batch=chip_smoke.S, camera=cam,
                              device="cuda")
         vo.reset(p0)
         for c in range(args.chunk):
-            vo.advance(*chunk(c))
+            vo._advance_eager(*chunk(c))
         torch.cuda.synchronize()
         return vo
 
-    def timed_chunk(vo):
+    def timed_chunk(advance):
         t0 = time.perf_counter()
-        vo.advance(*chunk(args.chunk))
+        advance(*chunk(args.chunk))
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+
+    def profiled(advance):
+        with torch.profiler.profile(activities=acts) as prof:
+            wall = timed_chunk(advance)
+        return prof, chip_smoke.device_activity(prof), wall
+
     session()                                 # warm-up: CUDA init, build
-    walls = [timed_chunk(session()) for _ in range(args.reps)]
+    walls = [timed_chunk(session()._advance_eager) for _ in range(args.reps)]
     wall = statistics.median(walls)
 
     acc = {name: [0.0, 0] for name in STAGES}
@@ -106,24 +108,35 @@ def main():
     try:
         for name, fn in originals.items():
             setattr(device_vo, name, synced(name, fn))
-        synced_wall = timed_chunk(vo)
+        synced_wall = timed_chunk(vo._advance_eager)
     finally:
         for name, fn in originals.items():
             setattr(device_vo, name, fn)
 
-    vo = session()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        profiled_wall = timed_chunk(vo)
-    dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = _busy_us([(e.time_range.start, e.time_range.end)
-                        for e in dev]) / 1e3
+    prof, act, profiled_wall = profiled(session()._advance_eager)
     rows = sorted(prof.key_averages(),
                   key=lambda r: r.self_device_time_total, reverse=True)
     top = [dict(name=r.key, self_device_ms=r.self_device_time_total / 1e3,
                 calls=r.count) for r in rows[:12]]
+
+    # the replayed graph: capture once, then reset and replay to the chunk
+    graph = BatchedDeviceVO(cfg, batch=chip_smoke.S, camera=cam,
+                            device="cuda")
+    graph.reset(p0)
+    for c in range(2):                       # the eager chunk, the capture
+        graph.advance(*chunk(c))
+
+    def replayed_to_chunk():
+        graph.reset(p0)
+        for c in range(args.chunk):
+            graph.advance(*chunk(c))
+        torch.cuda.synchronize()
+        return graph.advance
+
+    replay_walls = [timed_chunk(replayed_to_chunk())
+                    for _ in range(args.reps)]
+    replay_wall = statistics.median(replay_walls)
+    _, ract, rprofiled_wall = profiled(replayed_to_chunk())
 
     frames = chip_smoke.S * C
     result = dict(
@@ -136,10 +149,25 @@ def main():
                         ms_per_call=1e3 * v[0] / max(v[1], 1),
                         share=v[0] / synced_wall) for k, v in acc.items()},
         profiled_wall_s=profiled_wall,
-        device_busy_ms=busy_ms, device_activities=len(dev),
-        activities_per_frame=len(dev) / C,
-        idle_share=(1.0 - busy_ms / (1e3 * wall)) if dev else None,
-        top_device_rows=top)
+        device_busy_ms=act["busy_ms"], device_span_ms=act["span_ms"],
+        device_activities=act["activities"],
+        device_kernels=act["kernels"],
+        activities_per_frame=act["activities"] / C,
+        idle_share=(1.0 - act["busy_ms"] / (1e3 * wall))
+        if act["activities"] else None,
+        top_device_rows=top,
+        replay=dict(wall_s=replay_walls, wall_median_s=replay_wall,
+                    keyframes_per_s=frames / replay_wall,
+                    capture_s=graph._chunks[0].capture_seconds,
+                    profiled_wall_s=rprofiled_wall,
+                    device_busy_ms=ract["busy_ms"],
+                    device_span_ms=ract["span_ms"],
+                    device_activities=ract["activities"],
+                    device_kernels=ract["kernels"],
+                    idle_share_of_span=(1.0 - ract["busy_ms"]
+                                        / ract["span_ms"])
+                    if ract["activities"] else None,
+                    busy_share_of_wall=ract["busy_ms"] / (1e3 * replay_wall)))
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(result, f, indent=1)
@@ -153,16 +181,33 @@ def main():
                        key=lambda kv: -kv[1]["total_s"]):
         print(f"  {k:18s} {v['ms_per_call']:9.3f} ms x {v['calls']:3d} "
               f"= {100 * v['share']:5.1f} %")
-    if dev:
+    if act["activities"]:
         print(f"profiled wall {profiled_wall:.4f} s; device busy "
-              f"{busy_ms:.3f} ms in {len(dev)} activities "
-              f"({len(dev) / C:.0f} per frame); idle share against the "
-              f"unprofiled wall {100 * result['idle_share']:.2f} %")
+              f"{act['busy_ms']:.3f} ms in {act['activities']} activities "
+              f"({act['activities'] / C:.0f} per frame, {act['kernels']} "
+              f"kernels); idle share against the unprofiled wall "
+              f"{100 * result['idle_share']:.2f} %")
     else:
         print("the profiler recorded no device activity: idle share not "
               "measured")
     for r in top:
         print(f"  {r['self_device_ms']:9.3f} ms {r['calls']:6d} x {r['name']}")
+    rep = result["replay"]
+    print("replayed graph, unprofiled wall: "
+          + ", ".join(f"{w:.4f}" for w in replay_walls)
+          + f" s; median {replay_wall:.4f} s = {frames / replay_wall:.2f} "
+          f"keyframes/s; capture {rep['capture_s'][0]:.3f} s")
+    if ract["activities"]:
+        print(f"replayed graph, profiled wall {rprofiled_wall:.4f} s; device "
+              f"busy {ract['busy_ms']:.3f} ms of a {ract['span_ms']:.3f} ms "
+              f"device span in {ract['activities']} activities "
+              f"({ract['kernels']} kernels): idle "
+              f"{100 * rep['idle_share_of_span']:.2f} % of the span; busy "
+              f"{100 * rep['busy_share_of_wall']:.2f} % of the unprofiled "
+              f"replayed wall")
+    else:
+        print("the profiler recorded no device activity in the replay: "
+              "idle share not measured")
     print(f"wrote {args.out}")
 
 
