@@ -19,13 +19,20 @@ ground truth and compares the front-end on CPU and card. Then it drives the
 interactive path, ``slam_tpu_torch.pipeline.slam_api.Slam``, at the
 pipeline bench's parameters over a biased square loop of 128 frames: the
 ORB extractor with its words at the 65,536-word vocabulary, local BA,
-loop closure; it runs the session twice and checks that the second
-repeats the first bit for bit, the closure, the map's consistency and the
-final error against the odometry's, and the extractor's words on CPU and
-card. Then: the BA's PCG branch on a global problem above the dense-Schur
-limit against the CPU, and the card's segment sums bit-equal to the CPU's;
+loop closure; it runs the session twice with the BA as one CUDA graph a
+padded bucket (``ops/ba.BA_GRAPHS``: a warm-up that captures, then a timed
+session that replays) and once more on the op-by-op twins, and checks
+that the graphed sessions equal the eager one bit for bit, the closure,
+the map's consistency and the final error against the odometry's, and the
+extractor's words on CPU and card; it prints the graph cache's counters,
+the warm-up's buckets and the BA's timer sections. Every BA bucket of that
+session then replays bit-equal to its eager twin on one of the session's
+own problems, timed beside it. Then: the BA's PCG branch on a global
+problem above the dense-Schur limit against the CPU, and the card's
+segment sums bit-equal to the CPU's;
 ``DescriptorTracker`` over the interactive frames; ``bench.py``'s four
-concurrent sessions through ``parallel/batch.map_sequences``;
+concurrent sessions through ``parallel/batch.map_sequences`` (their threads
+sharing the BA graph cache);
 ``BatchedDeviceVO(mesh=)`` on a mesh that lists the card twice, under
 ``utils/profiling.device_trace``; and ``parallel/multichip``'s update step.
 Last the rendered-sequence tools (``tools/torch_*.py``) as a user runs them:
@@ -749,25 +756,65 @@ def make_interactive_inputs(cam):
     return world, frames, odom
 
 
+def _eager_twins():
+    """``ops/ba.solve_ba`` and ``solve_ba_two_stage`` as their op-by-op
+    twins, with the inputs (pinned host tensors) moved to ``device``
+    first."""
+    from slam_tpu_torch.ops import ba
+
+    def twin(eager):
+        def run(*args, device=None, **kw):
+            move = lambda t: t.to(device, non_blocking=True)  # noqa: E731
+            return eager(*(type(a)(*map(move, a))
+                           if isinstance(a, ba.BAProblem) else move(a)
+                           for a in args), **kw)
+        return run
+    return twin(ba.solve_ba_eager), twin(ba.solve_ba_two_stage_eager)
+
+
+def _cache_text(c):
+    """The BA graph cache's counters in one line."""
+    cap = c["capture_seconds"]
+    return (f"{c['buckets']} buckets, {c['eager_runs']} eager runs, "
+            f"{c['captures']} captures "
+            f"({sum(cap):.3f} s, {max(cap, default=0):.3f} s the longest), "
+            f"{c['replays']} replays, pools {c['pool_bytes']} B")
+
+
+def _ba_sections(stats):
+    """{section: (calls, ms a call)} of the timer's ``ba_*`` sections and
+    the BA drivers."""
+    return {n: (stats.counts[n], 1e3 * stats.totals[n] / stats.counts[n])
+            for n in sorted(stats.totals)
+            if n.startswith("ba_") or n.endswith("bundle_adjust")}
+
+
 def phase_interactive(cam, world, frames, odom, smi):
     """``Slam.build`` -> ``add_frame`` -> ``end`` on the card: the session
-    once as a warm-up, then again, timed. Checks that the timed session
-    repeats the warm-up bit for bit (the BA's segment sums add in a fixed
-    order), the closure, consistency, the final keyframe's error against
-    the odometry's, K1's launches against the extractions and device
-    quantizations, and frame 0's words on CPU and card."""
+    once as a warm-up (each BA bucket's first call eager, its second
+    captured as a CUDA graph), then again, timed (replays), then once more
+    with the BA entries swapped for their op-by-op twins. Checks that the
+    graphed sessions equal the eager-twin session bit for bit (closures,
+    map points, every keyframe pose), that no global BA touches the BA
+    graph cache, the closure, consistency, the final keyframe's error
+    against the odometry's, K1's launches against the extractions and
+    device quantizations, and frame 0's words on CPU and card. Returns
+    one problem of every BA bucket the warm-up dispatched, for
+    ``phase_ba_graph``."""
     from slam_tpu_torch import native
     from slam_tpu_torch.map.keyframe import MapperInput, Pose
-    from slam_tpu_torch.ops import bow
+    from slam_tpu_torch.ops import ba, bow
     from slam_tpu_torch.ops.frontend import OrbExtractor
     from slam_tpu_torch.ops.hamming_argmin import hamming_argmin
     from slam_tpu_torch.params import Parameters, ParametersSlam
+    from slam_tpu_torch.pipeline import mapper_helpers
     from slam_tpu_torch.pipeline.mapper_helpers import check_consistency
     from slam_tpu_torch.pipeline.slam_api import Slam
     from slam_tpu_torch.utils import timer
 
     assert native.available(), "the native host library did not build"
     params = Parameters(slam=ParametersSlam(**IA_PARAMS))
+    cache = ba.BA_GRAPHS
 
     def mapper_input(i):
         return MapperInput(
@@ -801,19 +848,67 @@ def phase_interactive(cam, world, frames, odom, smi):
                 sorted(int(k) for k in db.map_points),
                 {int(k): kf.pose_cw for k, kf in db.keyframes.items()})
 
-    warm, _ = session()                       # warm-up: caches, allocator
-    stats = timer.enable_timing()
-    hamming_argmin.launches = 0
-    bow.quantize.device_calls = 0
-    slam, wall = session()
-    launches = hamming_argmin.launches
-    quantized = bow.quantize.device_calls
-    timer.disable_timing()
-    (edges0, mps0, poses0), (edges, mps, poses) = outcome(warm), outcome(slam)
-    assert edges == edges0 and mps == mps0 and poses.keys() == poses0.keys(), \
-        ("the session did not repeat", edges0, edges)
-    assert all(np.array_equal(poses[k], poses0[k]) for k in poses), \
-        "the session's poses did not repeat bit for bit"
+    # the global BA stays on the eager twin: the cache is untouched by it
+    global_ba, globals_run = mapper_helpers.global_bundle_adjust, []
+
+    def global_untouched(*a, **k):
+        before = cache.counters()
+        global_ba(*a, **k)
+        after = cache.counters()
+        assert after == before, ("a global BA used the BA graphs",
+                                 before, after)
+        globals_run.append(1)
+
+    # one problem of every bucket, recorded in the warm-up
+    problems, run = {}, cache.run
+
+    def recorded(entry, fn, tensors, device, **static):
+        key = (entry, tuple(tuple(t.shape) for t in tensors),
+               tuple(sorted(static.items())))
+        if key not in problems:
+            problems[key] = (entry, [t.clone() for t in tensors], static)
+        return run(entry, fn, tensors, device, **static)
+
+    mapper_helpers.global_bundle_adjust = global_untouched
+    cache.run = recorded
+    graphed = ba.solve_ba, ba.solve_ba_two_stage
+    try:
+        cache.reset_counts()
+        warm, warm_wall = session()     # warm-up: captures, allocator
+        warm_counts, histogram = cache.counters(), cache.buckets()
+        del cache.run
+        stats = timer.enable_timing()
+        cache.reset_counts()
+        hamming_argmin.launches = 0
+        bow.quantize.device_calls = 0
+        slam, wall = session()
+        launches = hamming_argmin.launches
+        quantized = bow.quantize.device_calls
+        timed_counts = cache.counters()
+        timer.disable_timing()
+        eager_stats = timer.enable_timing()
+        ba.solve_ba, ba.solve_ba_two_stage = _eager_twins()
+        eager, eager_wall = session()
+        ba.solve_ba, ba.solve_ba_two_stage = graphed
+        timer.disable_timing()
+        assert cache.counters() == timed_counts, "the eager twins used graphs"
+    finally:
+        mapper_helpers.global_bundle_adjust = global_ba
+        ba.solve_ba, ba.solve_ba_two_stage = graphed
+        cache.__dict__.pop("run", None)
+        timer.disable_timing()
+    edges_e, mps_e, poses_e = outcome(eager)
+    for name, got in (("warm-up", warm), ("timed", slam)):
+        edges, mps, poses = outcome(got)
+        assert edges == edges_e and mps == mps_e \
+            and poses.keys() == poses_e.keys(), (
+                f"the {name} session differs from the eager-twin session",
+                edges_e, edges, len(mps_e), len(mps))
+        assert all(np.array_equal(poses[k], poses_e[k]) for k in poses), \
+            f"the {name} session's poses differ from the eager twins'"
+    edges = edges_e
+    assert timed_counts["eager_runs"] == 0, timed_counts
+    assert warm_counts["captures"] > 0 and timed_counts["replays"] > 0
     mapper = slam.mapper
     db = mapper.map_db
     check_consistency(db)
@@ -829,13 +924,30 @@ def phase_interactive(cam, world, frames, odom, smi):
                                     - centre(world.poses_cw[k])))
     fps = IA_FRAMES / wall
     print(f"interactive Slam: {IA_FRAMES} frames at {WIDTH}x{HEIGHT} in "
-          f"{wall:.3f} s = {fps:.2f} frames/s, the warm-up repeated bit for "
-          f"bit; {len(db.keyframes)} keyframes, "
+          f"{wall:.3f} s = {fps:.2f} frames/s (warm-up {warm_wall:.3f} s, "
+          f"eager-twin BAs {eager_wall:.3f} s = "
+          f"{IA_FRAMES / eager_wall:.2f} frames/s); the warm-up and the "
+          f"timed session equal the eager-twin session bit for bit; "
+          f"{len(db.keyframes)} keyframes, "
           f"{len(db.map_points)} map points, closures {edges} (loop stats "
-          f"{dict(mapper.loop_closer.stats.totals)}); final keyframe {k} "
+          f"{dict(mapper.loop_closer.stats.totals)}); "
+          f"{len(globals_run) // 3} global BA(s) a session, none through "
+          f"the BA graphs; final keyframe {k} "
           f"camera-centre error {err:.6f} m vs odometry {odom_err:.6f} m; "
           f"K1 launches {launches} = {extractions} extractions + {quantized} "
           f"device quantizations; on {smi}")
+    print(f"BA graph cache: warm-up {_cache_text(warm_counts)}; timed "
+          f"{_cache_text(timed_counts)}; on {smi}")
+    print("BA buckets of the warm-up session (entry, K, M, O, E, P, "
+          "iterations, cg_iters: calls): " + "; ".join(
+              f"{b['entry']} {b['K']} {b['M']} {b['O']} {b['E']} {b['P']} "
+              f"{b['iterations']} {b['cg_iters']}: {b['calls']}"
+              for b in histogram))
+    for name, st in (("graphs", stats), ("eager twins", eager_stats)):
+        print(f"interactive BA sections, {name} (calls, host ms a call): "
+              + ", ".join(f"{n} {c} x {ms:.3f}"
+                          for n, (c, ms) in _ba_sections(st).items())
+              + f"; on {smi}")
     print(f"interactive host sections (host clock, timed session), on {smi}:"
           f"\n{stats.table()}")
     assert edges, "no loop closure accepted"
@@ -851,7 +963,90 @@ def phase_interactive(cam, world, frames, odom, smi):
     print(f"OrbExtractor CPU vs card, frame 0: {same.mean():.4%} of slots "
           f"with equal descriptors, their words all equal")
     return dict(wall=wall, fps=fps, launches=launches, edges=edges, err=err,
-                odom_err=odom_err)
+                odom_err=odom_err, problems=list(problems.values()),
+                histogram=histogram)
+
+
+def phase_ba_graph(problems, smi):
+    """Every BA bucket the interactive session dispatched, on one of its
+    own problems: the bucket's graph (captured here if the session called
+    the bucket once) replayed against the op-by-op twin, bit-equal in
+    poses, points, chi2 and cost; the twin's and the replay's host
+    enqueue, device time (CUDA events) and wall; the device kernels in one
+    replay (``torch.profiler``), the bucket's capture seconds and the
+    pools' bytes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from slam_tpu_torch.ops import ba
+
+    cache = ba.BA_GRAPHS
+    entries = {"solve_ba": (ba.solve_ba, ba.solve_ba_eager),
+               "solve_ba_two_stage": (ba.solve_ba_two_stage,
+                                      ba.solve_ba_two_stage_eager)}
+    rows = []
+    for entry, host, static in problems:
+        graphed, eager = entries[entry]
+        n = len(ba.BAProblem._fields)
+        args = (ba.BAProblem(*host[:n]), *host[n:])
+        on_card = [t.cuda() for t in host]
+        card = (ba.BAProblem(*on_card[:n]), *on_card[n:])
+
+        def timed(fn, a):
+            torch.cuda.synchronize()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            e0.record()
+            out = fn(*a, **static)
+            t1 = time.perf_counter()
+            e1.record()
+            torch.cuda.synchronize()
+            return (out, 1e3 * (t1 - t0), e0.elapsed_time(e1),
+                    1e3 * (time.perf_counter() - t0))
+
+        before = cache.counters()
+        while True:                     # replay, capturing first if needed
+            got, host_ms, dev_ms, wall_ms = timed(
+                lambda *a, **k: graphed(*a, device="cuda", **k), args)
+            now = cache.counters()
+            if now["replays"] > before["replays"] and \
+                    now["captures"] == before["captures"]:
+                break
+            before = now
+        want, e_host, e_dev, e_wall = timed(eager, card)
+        bad = [f for f, x, y in zip(ba.BAResult._fields, got, want)
+               if not torch.equal(x, y)]
+        assert not bad, (entry, static, f"replay differs from the eager "
+                         f"twin in {bad}")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            graphed(*args, device="cuda", **static)
+            torch.cuda.synchronize()
+        act = device_activity(prof)
+        dims = tuple(host[i].shape[1] for i in (0, 2, 4, 9, 14))
+        (b,) = [b for b in cache.buckets() if b["entry"] == entry
+                and tuple(b[d] for d in "KMOEP") == dims
+                and b["iterations"] == static["iterations"]
+                and b["cg_iters"] == static["cg_iters"]]
+        rows.append(dict(entry=entry, K=b["K"], M=b["M"], O=b["O"],
+                         iterations=static["iterations"],
+                         cg_iters=static["cg_iters"], replay_host_ms=host_ms,
+                         replay_device_ms=dev_ms, replay_wall_ms=wall_ms,
+                         eager_host_ms=e_host, eager_device_ms=e_dev,
+                         eager_wall_ms=e_wall, kernels=act["kernels"],
+                         busy_ms=act["busy_ms"],
+                         capture_s=b["capture_seconds"]))
+        print(f"BA graph {entry} K {b['K']} M {b['M']} O {b['O']} E "
+              f"{b['E']} P {b['P']}, {static['iterations']} iterations, "
+              f"cg_iters {static['cg_iters']}: replay bit-equal to the eager "
+              f"twin (poses, points, obs_chi2, cost); replay host "
+              f"{host_ms:.3f} ms, device {dev_ms:.3f} ms, wall "
+              f"{wall_ms:.3f} ms; eager host {e_host:.3f} ms, device "
+              f"{e_dev:.3f} ms, wall {e_wall:.3f} ms; one replay "
+              f"{act['kernels']} device kernels, busy {act['busy_ms']:.3f} "
+              f"ms; capture {b['capture_seconds']:.3f} s; on {smi}")
+    print(f"BA graphs: {len(rows)} buckets replayed bit-equal to their "
+          f"eager twins; cache {_cache_text(cache.counters())}; on {smi}")
+    return rows
 
 
 def phase_ba_card(smi):
@@ -868,21 +1063,21 @@ def phase_ba_card(smi):
     p = ba_problem(PCG_K, PCG_M, PCG_OBS, seed=0)
     on = lambda q, dev: type(q)(*(t.to(dev) for t in q))
     t0 = time.perf_counter()
-    cpu = ba.solve_ba(p, 5, cg)
+    cpu = ba.solve_ba_eager(p, 5, cg)
     cpu_s = time.perf_counter() - t0
     pc = on(p, "cuda")
-    ba.solve_ba(pc, 5, cg)                          # warm-up
+    ba.solve_ba_eager(pc, 5, cg)                    # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    card = ba.solve_ba(pc, 5, cg)
+    card = ba.solve_ba_eager(pc, 5, cg)
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
     cost0 = float(ba._total_cost(p.poses, p.points, p, ba.HUBER_DELTA)[0])
     pose_err = float((card.poses.cpu() - cpu.poses).abs().max())
     point_err = float((card.points.cpu() - cpu.points).abs().max())
     # the f32 floor of this problem: the CPU's f32 solve against its f64 one
-    f64 = ba.solve_ba(type(p)(*(t.double() if t.is_floating_point() else t
-                                for t in p)), 5, cg)
+    f64 = ba.solve_ba_eager(type(p)(*(t.double() if t.is_floating_point()
+                                      else t for t in p)), 5, cg)
     floor = float((cpu.points.double() - f64.points).abs().max())
     print(f"PCG global BA K={PCG_K} M={PCG_M} O={PCG_M * PCG_OBS} (K x M = "
           f"{PCG_K * PCG_M} > {ba.DENSE_SCHUR_MAX_KM}), 5 LM iterations x "
@@ -992,10 +1187,11 @@ def make_session_inputs():
 
 
 def phase_sessions(seqs, smi):
-    """``map_sequences(device="cuda")``: the sessions concurrently, then the
-    first alone on the same frames. Every map passes the audit, and K1 ran
-    once per extraction and device quantization of every session."""
-    from slam_tpu_torch.ops import bow
+    """``map_sequences(device="cuda")``: the sessions concurrently, their
+    threads sharing the BA graph cache, then the first alone on the same
+    frames. Every map passes the audit, and K1 ran once per extraction and
+    device quantization of every session."""
+    from slam_tpu_torch.ops import ba, bow
     from slam_tpu_torch.ops.hamming_argmin import hamming_argmin
     from slam_tpu_torch.parallel.batch import map_sequences
     from slam_tpu_torch.params import Parameters, ParametersSlam
@@ -1020,7 +1216,9 @@ def phase_sessions(seqs, smi):
         assert launches == extractions + quantized > 0, (
             launches, extractions, quantized)
         return mappers, wall, launches
+    ba.BA_GRAPHS.reset_counts()
     mappers, wall, launches = run(seqs)
+    shared = ba.BA_GRAPHS.counters()
     _, alone_wall, _ = run(seqs[:1])
     agg = SESSIONS * SESSION_FRAMES / wall
     alone = SESSION_FRAMES / alone_wall
@@ -1029,7 +1227,8 @@ def phase_sessions(seqs, smi):
           f"{WIDTH}x{HEIGHT} in {wall:.3f} s = {agg:.2f} frames/s aggregate; "
           f"one session alone {alone:.2f} frames/s ({agg / alone:.2f}x); "
           f"keyframes {kfs}; every map consistent; K1 launches {launches} = "
-          f"extractions + device quantizations; on {smi}")
+          f"extractions + device quantizations; BA graph cache over the "
+          f"concurrent run: {_cache_text(shared)}; on {smi}")
     return dict(launches=launches, fps=agg, alone_fps=alone)
 
 
@@ -1328,6 +1527,7 @@ def main():
     phase_frontend(images)
     ia_inputs = make_interactive_inputs(cam)
     interactive = phase_interactive(cam, *ia_inputs, smi)
+    phase_ba_graph(interactive["problems"], smi)
     phase_ba_card(smi)
     tracker = phase_tracker(ia_inputs[1], smi)
     sessions = phase_sessions(make_session_inputs(), smi)

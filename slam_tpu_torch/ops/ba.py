@@ -15,11 +15,20 @@ problem per sequence; the interactive path's solves have S = 1).
 The JAX package's single-buffer uint32 transfer (``pack_problem``,
 ``fuse_packed`` and the ``*_packed``/``*_fused`` entry points) is not
 ported: callers build the tensors directly, through pinned memory.
+
+``solve_ba`` and ``solve_ba_two_stage`` are the counterparts of the JAX
+package's jitted entry points: one program per padded bucket
+(:class:`BAGraphCache`, one CUDA graph a bucket on a card). Their op-by-op
+twins, ``solve_ba_eager`` and ``solve_ba_two_stage_eager``, are what the
+first call of a bucket runs.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import NamedTuple
+import threading
+import time
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -405,14 +414,195 @@ def _as_dtype(res: BAResult, dtype: torch.dtype) -> BAResult:
                       for t in res))
 
 
-def solve_ba(p: BAProblem, iterations: int, cg_iters: int,
-             huber_delta: float = HUBER_DELTA,
-             init_lambda: float = 1e-4) -> BAResult:
-    """One LM solve, run in f64 (``_f64``) and returned in the problem's
-    dtype."""
+class _Bucket:
+    """One entry's padded bucket: the sizes it is known by, its calls, its
+    fixed input buffers, and the graph with the outputs it writes (on the
+    CPU, the last eager run's outputs)."""
+
+    def __init__(self, dims: dict):
+        self.dims = dims
+        self.calls = 0
+        self.inputs = None
+        self.graph = None
+        self.out: Optional[BAResult] = None
+        self.capture_seconds: Optional[float] = None
+
+
+class BAGraphCache:
+    """One program per entry and padded bucket, process-wide, as the JAX
+    package's jit cache holds one compiled program per static arguments and
+    padded shapes (``slam_tpu/ops/ba.py:333``, ``:507``).
+
+    A bucket is the entry, the device, the caller's current stream, every
+    input's shape and dtype, and the static arguments (``iterations``,
+    ``cg_iters``, ``huber_delta``, ``init_lambda``). Its first call runs the
+    op-by-op twin on the caller's tensors. Every later call copies its
+    inputs into the bucket's fixed buffers and, on a card, replays the
+    bucket's CUDA graph on the caller's current stream; the second call
+    captures it first: one run of the twin on a side stream in the calling
+    thread (its cuBLAS and cuSOLVER handles and workspaces), then the
+    capture into the stream's private memory pool
+    (``capture_error_mode="thread_local"``, so that other threads' work and
+    waits go on). On the CPU the later calls run the twin eagerly on the
+    same buffers. The result is a copy of the bucket's outputs, which the
+    next call of the bucket overwrites. A per-device lock holds from the
+    input copy to that copy, so buffers and pool serve one call at a time.
+    A failed capture or replay raises; nothing carries on eagerly."""
+
+    def __init__(self):
+        self._buckets: Dict[tuple, _Bucket] = {}
+        self._lock = threading.Lock()        # the dicts and the counters
+        self._device_locks: Dict[torch.device, threading.Lock] = {}
+        self._pools: Dict[tuple, tuple] = {}  # (device, stream) -> pool
+        self._side: Dict[torch.device, "torch.cuda.Stream"] = {}
+        self.reset_counts()
+
+    def reset_counts(self) -> None:
+        """Zero the counters and every bucket's calls; graphs stay."""
+        with self._lock:
+            self.eager_runs = self.captures = self.replays = 0
+            self.capture_seconds = []
+            for b in self._buckets.values():
+                b.calls = 0
+
+    def clear(self) -> None:
+        """Drop every bucket, graph and pool."""
+        with self._lock:
+            self._buckets.clear()
+            self._pools.clear()
+        self.reset_counts()
+
+    def run(self, entry: str, fn, tensors, device, **static) -> BAResult:
+        """``fn(*tensors)`` (a ``BAResult``) as ``entry``'s program for
+        these shapes and ``static`` on ``device``. ``tensors`` may lie on
+        the host (pinned, for an asynchronous copy) or on ``device``."""
+        device = torch.device(device)
+        on_card = device.type == "cuda"
+        if on_card and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        stream = (torch.cuda.current_stream(device).cuda_stream if on_card
+                  else 0)
+        key = (entry, device, stream,
+               tuple((tuple(t.shape), t.dtype) for t in tensors),
+               tuple(sorted(static.items())))
+        with self._lock:
+            b = self._buckets.get(key)
+            first = b is None
+            if first:
+                # the first 18 tensors are a BAProblem's fields
+                b = self._buckets[key] = _Bucket(dict(
+                    entry=entry, S=tensors[0].shape[0],
+                    K=tensors[0].shape[1], M=tensors[2].shape[1],
+                    O=tensors[4].shape[1], E=tensors[9].shape[1],
+                    P=tensors[14].shape[1], **static))
+                self.eager_runs += 1
+            b.calls += 1
+            lock = self._device_locks.setdefault(device, threading.Lock())
+        if first:
+            return fn(*(t.to(device, non_blocking=True) for t in tensors))
+        with lock, (torch.cuda.device(device) if on_card
+                    else contextlib.nullcontext()):
+            if b.inputs is None:
+                b.inputs = [torch.empty(t.shape, dtype=t.dtype, device=device)
+                            for t in tensors]
+            for d, s in zip(b.inputs, tensors):
+                d.copy_(s, non_blocking=True)
+            if not on_card:
+                b.out = fn(*b.inputs)
+                with self._lock:
+                    self.eager_runs += 1
+            else:
+                if b.graph is None:
+                    self._capture(b, fn, device, stream)
+                b.graph.replay()
+                with self._lock:
+                    self.replays += 1
+            return BAResult(*(t.clone() for t in b.out))
+
+    def _capture(self, b: _Bucket, fn, device: torch.device,
+                 stream: int) -> None:
+        t0 = time.perf_counter()
+        with self._lock:
+            side = self._side.get(device)
+            if side is None:
+                side = self._side[device] = torch.cuda.Stream(device)
+            pool = self._pools.get((device, stream))
+            if pool is None:
+                pool = self._pools[(device, stream)] = \
+                    torch.cuda.graph_pool_handle()
+        caller = torch.cuda.current_stream(device)
+        side.wait_stream(caller)
+        with torch.cuda.stream(side):
+            fn(*b.inputs)
+        caller.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=pool, stream=side,
+                              capture_error_mode="thread_local"):
+            b.out = fn(*b.inputs)
+        b.graph = graph
+        b.capture_seconds = time.perf_counter() - t0
+        with self._lock:
+            self.captures += 1
+            self.capture_seconds.append(b.capture_seconds)
+
+    def buckets(self) -> list:
+        """Each bucket's sizes, static arguments, calls, whether it has a
+        graph and its capture's seconds, in the order of first sighting."""
+        with self._lock:
+            return [dict(b.dims, calls=b.calls, graph=b.graph is not None,
+                         capture_seconds=b.capture_seconds)
+                    for b in self._buckets.values()]
+
+    def pool_bytes(self) -> int:
+        """Device bytes the graphs' private pools hold (their segments in
+        the allocator's snapshot)."""
+        with self._lock:
+            pools = {tuple(p) for p in self._pools.values()}
+        if not pools:
+            return 0
+        return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+                   if tuple(s["segment_pool_id"]) in pools)
+
+    def counters(self) -> dict:
+        """Buckets seen, eager runs (first sightings; on the CPU every
+        call), captures, replays, seconds a capture (its warm-up run
+        included) and the pools' bytes."""
+        with self._lock:
+            out = dict(buckets=len(self._buckets), eager_runs=self.eager_runs,
+                       captures=self.captures, replays=self.replays,
+                       capture_seconds=list(self.capture_seconds))
+        out["pool_bytes"] = self.pool_bytes()
+        return out
+
+
+BA_GRAPHS = BAGraphCache()
+
+
+def solve_ba_eager(p: BAProblem, iterations: int, cg_iters: int,
+                   huber_delta: float = HUBER_DELTA,
+                   init_lambda: float = 1e-4) -> BAResult:
+    """One LM solve op by op, run in f64 (``_f64``) and returned in the
+    problem's dtype: the twin of ``solve_ba``'s program."""
     pin_full_f32()
     return _as_dtype(lm_run(_f64(p), iterations, cg_iters, huber_delta,
                             init_lambda), p.poses.dtype)
+
+
+def solve_ba(p: BAProblem, iterations: int, cg_iters: int,
+             huber_delta: float = HUBER_DELTA,
+             init_lambda: float = 1e-4, *,
+             device: Optional[torch.device] = None) -> BAResult:
+    """``solve_ba_eager`` as one program per padded bucket
+    (:data:`BA_GRAPHS`), on ``device`` (default: where ``p`` lies; a
+    problem in pinned host memory is copied straight into the bucket's
+    buffers)."""
+    pin_full_f32()
+    return BA_GRAPHS.run(
+        "solve_ba", lambda *t: solve_ba_eager(
+            BAProblem(*t), iterations, cg_iters, huber_delta, init_lambda),
+        tuple(p), p.poses.device if device is None else device,
+        iterations=iterations, cg_iters=cg_iters, huber_delta=huber_delta,
+        init_lambda=init_lambda)
 
 
 def two_stage_lm(p: BAProblem, stage2_pose_fixed: torch.Tensor,
@@ -443,15 +633,36 @@ def two_stage_lm(p: BAProblem, stage2_pose_fixed: torch.Tensor,
     return lm_run(p2, iterations, cg_iters, huber_delta, init_lambda)
 
 
+def solve_ba_two_stage_eager(p: BAProblem, stage2_pose_fixed: torch.Tensor,
+                             anchor_slot: torch.Tensor,
+                             anchor_sqrt_info: torch.Tensor,
+                             iterations: int, cg_iters: int,
+                             huber_delta: float = HUBER_DELTA,
+                             init_lambda: float = 1e-4) -> BAResult:
+    """``two_stage_lm`` op by op, run in f64 (``_f64``) and returned in
+    the problem's dtype: the twin of ``solve_ba_two_stage``'s program."""
+    pin_full_f32()
+    return _as_dtype(two_stage_lm(_f64(p), stage2_pose_fixed, anchor_slot,
+                                  anchor_sqrt_info, iterations, cg_iters,
+                                  huber_delta, init_lambda), p.poses.dtype)
+
+
 def solve_ba_two_stage(p: BAProblem, stage2_pose_fixed: torch.Tensor,
                        anchor_slot: torch.Tensor,
                        anchor_sqrt_info: torch.Tensor,
                        iterations: int, cg_iters: int,
                        huber_delta: float = HUBER_DELTA,
-                       init_lambda: float = 1e-4) -> BAResult:
-    """``two_stage_lm`` run in f64 (``_f64``) and returned in the
-    problem's dtype."""
+                       init_lambda: float = 1e-4, *,
+                       device: Optional[torch.device] = None) -> BAResult:
+    """``solve_ba_two_stage_eager`` as one program per padded bucket
+    (:data:`BA_GRAPHS`), on ``device`` as ``solve_ba``."""
     pin_full_f32()
-    return _as_dtype(two_stage_lm(_f64(p), stage2_pose_fixed, anchor_slot,
-                                  anchor_sqrt_info, iterations, cg_iters,
-                                  huber_delta, init_lambda), p.poses.dtype)
+    n = len(p)
+    return BA_GRAPHS.run(
+        "solve_ba_two_stage", lambda *t: solve_ba_two_stage_eager(
+            BAProblem(*t[:n]), *t[n:], iterations, cg_iters, huber_delta,
+            init_lambda),
+        (*p, stage2_pose_fixed, anchor_slot, anchor_sqrt_info),
+        p.poses.device if device is None else device,
+        iterations=iterations, cg_iters=cg_iters, huber_delta=huber_delta,
+        init_lambda=init_lambda)

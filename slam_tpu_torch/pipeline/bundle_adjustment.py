@@ -16,7 +16,11 @@ PCG solver from the padded sizes. Each solve runs on the device carried by
 the ``WorkspaceBA`` (or given to ``pose_bundle_adjust``/
 ``global_bundle_adjust``): the problem goes over pinned host memory, the
 result comes back into pinned buffers behind the solve, and a CUDA event
-recorded after that copy is all a collector waits on.
+recorded after that copy is all a collector waits on. The local and pose
+BAs run as one program per padded bucket (``ops/ba.solve_ba_two_stage``,
+``solve_ba``: on a card a replayed CUDA graph, the problem copied from
+pinned memory straight into the bucket's buffers); the global BA runs op
+by op (``ops/ba.solve_ba_eager``).
 """
 from __future__ import annotations
 
@@ -123,26 +127,24 @@ def _pad(n: int, quantum: int) -> int:
     return max(quantum, ((n + quantum - 1) // quantum) * quantum)
 
 
-def _to_device(arrays, device: torch.device):
-    """NumPy arrays -> tensors on ``device`` with a leading batch axis of 1;
-    integer index arrays become int64. On a card the bytes go through
-    pinned host memory without blocking the host."""
-    on_card = device.type == "cuda"
+def _staged(arrays, device: torch.device):
+    """NumPy arrays -> host tensors with a leading batch axis of 1, integer
+    index arrays as int64; in pinned memory when ``device`` is a card, so
+    that their copy to it does not block the host."""
     out = []
     for a in arrays:
         a = np.asarray(a)
         if a.dtype.kind in "iu":
             a = a.astype(np.int64)
         t = torch.from_numpy(np.ascontiguousarray(a[None]))
-        if on_card:
-            t = t.pin_memory()
-        out.append(t.to(device, non_blocking=True))
+        out.append(t.pin_memory() if device.type == "cuda" else t)
     return out
 
 
 def _problem_to_device(problem: ba.BAProblem, device: torch.device
                        ) -> ba.BAProblem:
-    return ba.BAProblem(*_to_device(problem, device))
+    return ba.BAProblem(*(t.to(device, non_blocking=True)
+                          for t in _staged(problem, device)))
 
 
 class _InFlight:
@@ -351,20 +353,30 @@ class _ProblemBuilder:
             pr_idx=pr_idx, pr_meas=pr_meas, pr_sqrt_info=pr_si,
             pr_valid=pr_valid)
 
-    def solve_async(self, iterations: int,
-                    pick=ba.pick_cg_iters) -> _InFlight:
+    def solve_async(self, iterations: int, pick=ba.pick_cg_iters,
+                    eager: bool = False) -> _InFlight:
         """Enqueue the solve and its host copy; returns without waiting.
-        ``pick`` chooses the solver from the padded sizes."""
+        ``pick`` chooses the solver from the padded sizes; the solve is
+        ``ops/ba.solve_ba``'s program for its bucket, or with ``eager`` the
+        op-by-op ``solve_ba_eager``."""
         problem = self.build()
         # the solver follows the PADDED shapes (0 = dense Schur)
         K, M = problem.poses.shape[0], problem.points.shape[0]
         cg = pick(K, M)
-        result = ba.solve_ba(_problem_to_device(problem, self.device),
-                             iterations=int(iterations), cg_iters=int(cg))
+        if eager:
+            result = ba.solve_ba_eager(
+                _problem_to_device(problem, self.device),
+                iterations=int(iterations), cg_iters=int(cg))
+        else:
+            result = ba.solve_ba(
+                ba.BAProblem(*_staged(problem, self.device)),
+                iterations=int(iterations), cg_iters=int(cg),
+                device=self.device)
         return _InFlight(result)
 
-    def solve(self, iterations: int, pick=ba.pick_cg_iters) -> ba.BAResult:
-        return self.solve_async(iterations, pick).get()
+    def solve(self, iterations: int, pick=ba.pick_cg_iters,
+              eager: bool = False) -> ba.BAResult:
+        return self.solve_async(iterations, pick, eager).get()
 
     def apply_poses(self, result: ba.BAResult, map_db: MapDB,
                     only: Optional[Set[KfId]] = None) -> None:
@@ -564,23 +576,28 @@ def local_bundle_adjust(keyframe: Keyframe, workspace: WorkspaceBA,
         K, M = problem.poses.shape[0], problem.points.shape[0]
         stage2_fixed = np.ones(K, bool)
         stage2_fixed[:len(builder.kf_ids)] = False
-        args = (_problem_to_device(problem, workspace.device),
-                *_to_device([stage2_fixed,
-                             np.asarray(builder.kf_slot[keyframe.id]),
-                             _sqrt_info(anchor_info).astype(np.float32)],
-                            workspace.device))
+        dev = workspace.device
+        args = (ba.BAProblem(*_staged(problem, dev)),
+                *_staged([stage2_fixed,
+                          np.asarray(builder.kf_slot[keyframe.id]),
+                          _sqrt_info(anchor_info).astype(np.float32)], dev))
     cg = ba.pick_cg_iters(K, M)
     workspace.ba_stats.update(Ba.LOCAL)
+    # on a card: the inputs' copy into the bucket's buffers and the graph's
+    # replay are enqueued here; the device's time shows in the collector's
+    # wait (ba_collect_deferred) or in ba_solve_device
     if defer:
         with section("ba_dispatch_deferred"):
             device_result = _InFlight(ba.solve_ba_two_stage(
-                *args, iterations=int(iterations), cg_iters=int(cg)))
+                *args, iterations=int(iterations), cg_iters=int(cg),
+                device=dev))
         workspace.pending = PendingLocalBA(device_result, builder, keyframe.id,
                                            list(adjacent_kf_ids or []), Ba.LOCAL)
         return True
     with section("ba_solve_device"):
         result = _InFlight(ba.solve_ba_two_stage(
-            *args, iterations=int(iterations), cg_iters=int(cg))).get()
+            *args, iterations=int(iterations), cg_iters=int(cg),
+            device=dev)).get()
 
     with section("ba_apply"):
         builder.prune_outliers(result, map_db)
@@ -639,7 +656,12 @@ def global_bundle_adjust(current_kf_id: KfId, map_db: MapDB,
     observations' huge residuals made the f32 solve accept steps that
     moved every keyframe. And it solves its camera system exactly where
     the dense system fits (``ops/ba.pick_global_cg_iters``), where the JAX
-    package stops PCG at 96 steps."""
+    package stops PCG at 96 steps. And it runs op by op
+    (``ops/ba.solve_ba_eager``), where the JAX package's is one jitted
+    program: it runs once a closure, at a size that rarely comes again (K
+    48-624), and its dense solve peaks at about 586 B a padded pose-point
+    pair (up to 9.9 GB at ``GLOBAL_DENSE_MAX_KM``), which a graph's private
+    pool would hold for the rest of the process."""
     parameters = settings.parameters.slam
     builder = _ProblemBuilder(settings, device)
     for kf_id in sorted(map_db.keyframes):
@@ -668,7 +690,7 @@ def global_bundle_adjust(current_kf_id: KfId, map_db: MapDB,
         ok = builder.add_loop_edge(edge.kf_id1, edge.kf_id2, edge.pose_diff)
         assert ok
     result = builder.solve(parameters.globalBAIterations,
-                           ba.pick_global_cg_iters)
+                           ba.pick_global_cg_iters, True)    # eager
     builder.prune_outliers(result, map_db)
     builder.apply_poses(result, map_db)
     builder.apply_points(result, map_db)

@@ -521,7 +521,7 @@ class Tracer:
                   f"{g.steps()[1]:.6g} against the solve's "
                   f"{float(np.asarray(res.cost)):.6g})", flush=True)
         else:
-            res, g.costs = record_cg(self.ba, "solve_ba", g,
+            res, g.costs = record_cg(self.ba, "solve_ba_eager", g,
                                      lambda: record_costs(self.ba, solve))
         if self.on_global is not None:
             self.on_global(builder, problem, g)
@@ -912,7 +912,7 @@ class Tracer:
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        res, costs = record_costs(self.ba, lambda: self.ba.solve_ba(
+        res, costs = record_costs(self.ba, lambda: self.ba.solve_ba_eager(
             p, iterations=iterations, cg_iters=cg))
         poses = res.poses[0].double().cpu().numpy()
         ms = 1e3 * (time.perf_counter() - t0)
