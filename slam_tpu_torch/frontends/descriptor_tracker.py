@@ -18,6 +18,7 @@ import numpy as np
 
 from slam_tpu_torch.ops.frontend import FrontendResult, OrbExtractor
 from slam_tpu_torch.params import StaticSettings
+from slam_tpu_torch.utils.timer import timed_as
 
 
 @dataclasses.dataclass
@@ -43,6 +44,7 @@ class DescriptorTracker:
         self._prev: Optional[FrontendResult] = None
         self._prev_track_ids: Optional[np.ndarray] = None
 
+    @timed_as("tracker.process")
     def process(self, image: np.ndarray) -> TrackedFrame:
         # run the front-end with the previous tracked positions as the
         # LK-slot hints (keeps the slot layout contract of the reference).

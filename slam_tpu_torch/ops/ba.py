@@ -34,6 +34,7 @@ import torch
 
 from slam_tpu_torch.ops import lie
 from slam_tpu_torch.precision import pin_full_f32
+from slam_tpu_torch.utils import timer
 
 CHI2_THRESHOLD = 5.991  # reference: bundle_adjuster.cpp:28
 # Largest padded K*M for which the dense-Schur path builds its (K, M, 6, 3)
@@ -447,11 +448,19 @@ class BAGraphCache:
     same buffers. The result is a copy of the bucket's outputs, which the
     next call of the bucket overwrites. A per-device lock holds from the
     input copy to that copy, so buffers and pool serve one call at a time.
-    A failed capture or replay raises; nothing carries on eagerly."""
+    A failed capture or replay raises; nothing carries on eagerly.
+
+    While ``utils/timer`` is on, the counters' increments go to the timer
+    too (``ba.eager``, ``ba.capture`` with its seconds, ``ba.replay``), and
+    CUDA timing events are recorded around each replay on the caller's
+    stream; whoever collects the result takes them
+    (``take_replay_events``) and reads the replay's device time once the
+    result has arrived."""
 
     def __init__(self):
         self._buckets: Dict[tuple, _Bucket] = {}
         self._lock = threading.Lock()        # the dicts and the counters
+        self._local = threading.local()      # this thread's last replay
         self._device_locks: Dict[torch.device, threading.Lock] = {}
         self._pools: Dict[tuple, tuple] = {}  # (device, stream) -> pool
         self._side: Dict[torch.device, "torch.cuda.Stream"] = {}
@@ -476,6 +485,7 @@ class BAGraphCache:
         """``fn(*tensors)`` (a ``BAResult``) as ``entry``'s program for
         these shapes and ``static`` on ``device``. ``tensors`` may lie on
         the host (pinned, for an asynchronous copy) or on ``device``."""
+        self._local.replay = None
         device = torch.device(device)
         on_card = device.type == "cuda"
         if on_card and device.index is None:
@@ -496,6 +506,7 @@ class BAGraphCache:
                     O=tensors[4].shape[1], E=tensors[9].shape[1],
                     P=tensors[14].shape[1], **static))
                 self.eager_runs += 1
+                timer.count("ba.eager")
             b.calls += 1
             lock = self._device_locks.setdefault(device, threading.Lock())
         if first:
@@ -511,13 +522,31 @@ class BAGraphCache:
                 b.out = fn(*b.inputs)
                 with self._lock:
                     self.eager_runs += 1
+                timer.count("ba.eager")
             else:
                 if b.graph is None:
                     self._capture(b, fn, device, stream)
-                b.graph.replay()
+                if timer.TIME_STATS is None:
+                    b.graph.replay()
+                else:
+                    start, end = (torch.cuda.Event(enable_timing=True)
+                                  for _ in range(2))
+                    start.record()
+                    b.graph.replay()
+                    end.record()
+                    self._local.replay = (start, end)
                 with self._lock:
                     self.replays += 1
+                timer.count("ba.replay")
             return BAResult(*(t.clone() for t in b.out))
+
+    def take_replay_events(self) -> Optional[tuple]:
+        """(start, end) CUDA events around this thread's last replay, if
+        timing was on for it and no one has taken them; then forgets
+        them."""
+        events = getattr(self._local, "replay", None)
+        self._local.replay = None
+        return events
 
     def _capture(self, b: _Bucket, fn, device: torch.device,
                  stream: int) -> None:
@@ -544,6 +573,7 @@ class BAGraphCache:
         with self._lock:
             self.captures += 1
             self.capture_seconds.append(b.capture_seconds)
+        timer.add("ba.capture", b.capture_seconds)
 
     def buckets(self) -> list:
         """Each bucket's sizes, static arguments, calls, whether it has a

@@ -29,7 +29,8 @@ from slam_tpu_torch.ops.pyramid import (build_pyramid, device_operators,
                                         level_sizes)
 from slam_tpu_torch.params import ORB_PATCH_RADIUS, StaticSettings
 from slam_tpu_torch.precision import pin_full_f32
-from slam_tpu_torch.utils.timer import timed
+from slam_tpu_torch.utils import timer
+from slam_tpu_torch.utils.timer import timed, timed_as
 
 
 class FrontendSpec(NamedTuple):
@@ -216,36 +217,43 @@ class OrbExtractor:
                 self.device)
         return self._codebook
 
+    @timed_as("extract.enqueue")
     def _enqueue(self, image, tracked_xy, track_ids) -> _Pending:
         """Issue the extraction, the words and the host copy on the current
         stream of the device; returns without waiting for the device."""
         from slam_tpu_torch.ops.hamming_argmin import hamming_argmin
 
         pin_full_f32()
-        txy, tvalid, tids = self._pack_tracked(tracked_xy, track_ids)
-        d_txy, d_tvalid = self._tracked_device(txy, tvalid)
-        img = torch.from_numpy(np.ascontiguousarray(image, np.uint8))
+        with timer.section("extract.pack"):
+            txy, tvalid, tids = self._pack_tracked(tracked_xy, track_ids)
+            d_txy, d_tvalid = self._tracked_device(txy, tvalid)
         on_card = self.device.type == "cuda"
-        if on_card:
-            img = img.pin_memory()
-        img = img.to(self.device, non_blocking=True)
-        f = extract(img[None], d_txy[None], d_tvalid[None], self._spec)
-        desc = f.desc[0].contiguous()
-        if self.vocab_size > 0:
-            _, words = hamming_argmin(desc, self._vocabulary())
-        else:
-            words = torch.zeros(desc.shape[:1], dtype=torch.int32,
-                                device=self.device)
+        with timer.section("extract.upload"):
+            img = torch.from_numpy(np.ascontiguousarray(image, np.uint8))
+            if on_card:
+                img = img.pin_memory()
+            img = img.to(self.device, non_blocking=True)
+        with timer.section("extract.extract"):
+            f = extract(img[None], d_txy[None], d_tvalid[None], self._spec)
+            desc = f.desc[0].contiguous()
+        with timer.section("extract.words"):
+            if self.vocab_size > 0:
+                _, words = hamming_argmin(desc, self._vocabulary())
+            else:
+                words = torch.zeros(desc.shape[:1], dtype=torch.int32,
+                                    device=self.device)
         self.extractions += 1
+        timer.count("extract.extraction")
         outputs = (f.pts[0], f.octave[0], f.angle[0], desc, f.valid[0], words)
         if not on_card:
             return _Pending(outputs, None, tids)
-        host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                     for t in outputs)
-        for h, t in zip(host, outputs):
-            h.copy_(t, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(self.device))
+        with timer.section("extract.copy_out"):
+            host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                         for t in outputs)
+            for h, t in zip(host, outputs):
+                h.copy_(t, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
         return _Pending(host, event, tids)
 
     def prefetch(self, key, image: np.ndarray,
@@ -270,7 +278,8 @@ class OrbExtractor:
         if pending is None:
             pending = self._enqueue(image, tracked_xy, track_ids)
         if pending.event is not None:
-            pending.event.synchronize()
+            with timer.section("extract.wait"):
+                pending.event.synchronize()
         pts, octv, ang, desc, valid, words = (t.numpy()
                                               for t in pending.outputs)
         return FrontendResult(pts.copy(), octv.copy(), ang.copy(),

@@ -22,6 +22,7 @@ import threading
 import torch
 
 from slam_tpu_torch.ops.hamming import hamming_matrix
+from slam_tpu_torch.utils import timer
 
 
 # concurrent sessions (parallel/batch.py) launch from several threads; the
@@ -54,8 +55,8 @@ def hamming_argmin(desc: torch.Tensor, codebook: torch.Tensor):
     """(N, 8) x (V, 8) int32 -> (dist (N,), idx (N,)) int32.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel once
-    (counted in ``hamming_argmin.launches``; N = 0 launches nothing) or
-    raise."""
+    (counted in ``hamming_argmin.launches``, and in the timer's
+    ``k1.launch`` while timing is on; N = 0 launches nothing) or raise."""
     if desc.device.type == "cpu" and codebook.device.type == "cpu":
         return hamming_argmin_plain(desc, codebook)
     from slam_tpu_torch.kernels import hamming_argmin as kernel
@@ -63,6 +64,7 @@ def hamming_argmin(desc: torch.Tensor, codebook: torch.Tensor):
     dist, idx, launched = kernel.launch(desc, codebook)
     with COUNT_LOCK:
         hamming_argmin.launches += launched
+    timer.count("k1.launch", launched)
     return dist, idx
 
 

@@ -39,6 +39,7 @@ from slam_tpu_torch.ops import ba
 from slam_tpu_torch.params import StaticSettings
 from slam_tpu_torch.pipeline.adjacency import compute_adjacent_keyframes
 from slam_tpu_torch.utils.stats import Ba, BaStats
+from slam_tpu_torch.utils import timer
 from slam_tpu_torch.utils.timer import section, timed
 
 CHI2_THRESHOLD = ba.CHI2_THRESHOLD
@@ -151,10 +152,12 @@ class _InFlight:
     """A solve enqueued on the device's current stream, with its result
     copied into pinned host buffers behind it and an event after the copy.
     ``get`` waits on that event only and returns the NumPy ``BAResult``
-    without the batch axis."""
+    without the batch axis; while timing is on, it adds the solve's graph
+    replay's device time to the timer as ``ba.replay_device``."""
 
     def __init__(self, result: ba.BAResult):
         dev = result.poses.device
+        self._replay = ba.BA_GRAPHS.take_replay_events()
         if dev.type == "cuda":
             self._host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                           for t in result]
@@ -168,6 +171,11 @@ class _InFlight:
     def get(self) -> ba.BAResult:
         if self._event is not None:
             self._event.synchronize()
+        if self._replay is not None:
+            start, end = self._replay
+            self._replay = None
+            timer.add_device("ba.replay_device",
+                             1e-3 * start.elapsed_time(end))
         return ba.BAResult(*(t[0].numpy() for t in self._host))
 
 

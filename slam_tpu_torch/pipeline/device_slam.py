@@ -46,12 +46,15 @@ from slam_tpu_torch.ops.hamming import (HAMMING_DIST_THR_LOW,
 from slam_tpu_torch.ops.ransac import sim3_ransac_host
 from slam_tpu_torch.ops.sim3_opt import optimize_sim3_transform_host
 from slam_tpu_torch.params import StaticSettings
+from slam_tpu_torch.ops.stamp import durations
 from slam_tpu_torch.pipeline.device_vo import (BatchedDeviceVO, DeviceVOConfig,
                                                SnapOut, VOStepOut,
                                                _rebase_states, _resolve_camera,
                                                _resolve_settings,
-                                               loop_candidates)
+                                               loop_candidates, stamp_stages)
 from slam_tpu_torch.pipeline.loop_closer import drift_gate_angle
+from slam_tpu_torch.utils import timer
+from slam_tpu_torch.utils.timer import section, timed_as
 
 
 class DeviceSlamParams(NamedTuple):
@@ -206,12 +209,19 @@ class DeviceSlam:
 
     # ------------------------------------------------------------------
 
+    @timed_as("slam.advance")
     def advance(self, images: np.ndarray, odom_deltas: np.ndarray):
         """Enqueue one (S, T, ...) chunk; then consume the PREVIOUS chunk's
-        loop flags while this one runs on the device (one-chunk lag)."""
+        loop flags while this one runs on the device (one-chunk lag).
+        While timing is on, the chunk's stage stamps travel with its
+        outputs and the consumer adds them to the timer as device time
+        (``vo.device.<stage>``, ``device_vo.stamp_stages``)."""
         out = self.vo.advance(images, odom_deltas)
-        host = _to_host((out.pose_cw, out.loop_frame, out.loop_score)
-                        + tuple(self.vo.last_snaps))
+        with section("slam.to_host"):
+            stamps = (() if timer.TIME_STATS is None
+                      else (self.vo.last_stamps,))
+            host = _to_host((out.pose_cw, out.loop_frame, out.loop_score)
+                            + tuple(self.vo.last_snaps) + stamps)
         # fourth slot: per-sequence corrections accepted AFTER this chunk
         # was enqueued but BEFORE it is consumed; its poses were computed
         # from pre-rebase state and are corrected on arrival
@@ -233,20 +243,37 @@ class DeviceSlam:
 
     # ------------------------------------------------------------------
 
+    @timed_as("slam.consume")
     def _consume(self, host, offset: int, late_corr: dict) -> None:
         bufs, event = host
         if event is not None:
-            event.synchronize()
+            with section("slam.consume_wait"):
+                event.synchronize()
         pose_t, frame_t, score_t = bufs[:3]
-        snaps = SnapOut(*(t.numpy() for t in bufs[3:]))
-        poses = pose_t.numpy().copy()                        # (S, T, 4, 4)
-        for s in range(self.batch):
-            Tc = late_corr.get(s)
-            if Tc is not None:
-                self._pose_log[s].extend(p @ Tc for p in poses[s])
-            else:
-                self._pose_log[s].extend(poses[s])
-        self._mirror_snaps(snaps, late_corr)
+        n_snap = len(SnapOut._fields)
+        snaps = SnapOut(*(t.numpy() for t in bufs[3:3 + n_snap]))
+        if len(bufs) > 3 + n_snap:
+            for stage, s in durations(bufs[-1].numpy(), stamp_stages(
+                    self.cfg, pose_t.shape[1])).items():
+                timer.add_device(f"vo.device.{stage}", s)
+        with section("slam.mirror"):
+            poses = pose_t.numpy().copy()                    # (S, T, 4, 4)
+            for s in range(self.batch):
+                Tc = late_corr.get(s)
+                if Tc is not None:
+                    self._pose_log[s].extend(p @ Tc for p in poses[s])
+                else:
+                    self._pose_log[s].extend(poses[s])
+            self._mirror_snaps(snaps, late_corr)
+        with section("slam.gates"):
+            best = self._candidates(score_t, frame_t, pose_t, offset)
+        if best:
+            self._close(best)
+
+    def _candidates(self, score_t, frame_t, pose_t, offset: int) -> dict:
+        """Finish the score gate's calibration on the bootstrap segment;
+        the best flagged query a sequence that passes the gates, as {seq:
+        (query, candidate, score)}."""
         # score-gate calibration from the bootstrap segment (assumed
         # revisit-free), finalized once the segment is past
         p = self.params
@@ -267,7 +294,7 @@ class DeviceSlam:
         rows = loop_candidates(VOStepOut(pose_t, None, None, frame_t, score_t),
                                frame_offset=offset)
         if len(rows) == 0:
-            return
+            return {}
         gap_frames = p.min_closure_gap_s / p.frame_dt
         best = {}
         for seq_f, q_f, c_f, score in rows:
@@ -283,8 +310,11 @@ class DeviceSlam:
             cur = best.get(seq)
             if cur is None or score > cur[2]:
                 best[seq] = (q, c, float(score))
-        if not best:
-            return
+        return best
+
+    def _close(self, best: dict) -> None:
+        """Try each sequence's candidate; rebase the device state of the
+        sequences whose closure is accepted."""
         Ts = np.tile(np.eye(4, dtype=np.float32), (self.batch, 1, 1))
         apply = np.zeros(self.batch, bool)
         cands = np.full(self.batch, -1, np.int32)
@@ -293,7 +323,8 @@ class DeviceSlam:
         slot_T = np.tile(np.eye(4, dtype=np.float32), (self.batch, R, 1, 1))
         slot_frame = np.full((self.batch, R), -2, np.int32)
         for seq, (q, c, score) in best.items():
-            ev = self._try_close(seq, q, c, score)
+            with section("slam.try_close"):
+                ev = self._try_close(seq, q, c, score)
             self.closures.append(ev)
             if ev.accepted and self.params.apply_closures:
                 Ts[seq] = ev.T
@@ -306,12 +337,14 @@ class DeviceSlam:
                 self.closure_lags.append(self._frames_done - q)
         if apply.any():
             dev = self.vo.device
-            self.vo.state = _rebase_states(
-                self.vo.state, _to_device(Ts, dev), _to_device(apply, dev),
-                _to_device(cands, dev), _to_device(cand_slots, dev),
-                _to_device(slot_T, dev), _to_device(slot_frame, dev),
-                merge_radius=float(self.params.merge_radius_m),
-                merge=bool(self.params.merge_landmarks))
+            with section("slam.rebase"):
+                self.vo.state = _rebase_states(
+                    self.vo.state, _to_device(Ts, dev),
+                    _to_device(apply, dev), _to_device(cands, dev),
+                    _to_device(cand_slots, dev), _to_device(slot_T, dev),
+                    _to_device(slot_frame, dev),
+                    merge_radius=float(self.params.merge_radius_m),
+                    merge=bool(self.params.merge_landmarks))
             # chunks still in flight were computed from pre-rebase state:
             # their poses get the same right-multiplied correction when
             # they arrive (reference analogue: frames queued behind the
@@ -399,8 +432,9 @@ class DeviceSlam:
         if int(fq) != q or int(fc) != c:
             return rej("ring_overwritten")
 
-        dist = hamming_matrix_host(desc_q, desc_c)
-        i_q, i_c = _mutual_nn_lowe(dist, val_q, val_c, p.lowe_ratio)
+        with section("slam.match"):
+            dist = hamming_matrix_host(desc_q, desc_c)
+            i_q, i_c = _mutual_nn_lowe(dist, val_q, val_c, p.lowe_ratio)
         if len(i_q) < p.min_feature_matches:
             return rej("too_few_feature_matches", n_matches=len(i_q))
 

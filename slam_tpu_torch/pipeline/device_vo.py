@@ -21,6 +21,7 @@ drops with ``mode="drop"`` write to a scratch row M of a temporary buffer.
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 from typing import Mapping, NamedTuple, Optional
 
@@ -38,8 +39,10 @@ from slam_tpu_torch.ops.hamming import (HAMMING_DIST_THR_LOW, MASK_DIST,
 from slam_tpu_torch.ops.hamming_argmin import hamming_argmin
 from slam_tpu_torch.ops.pyramid import level_sizes
 from slam_tpu_torch.ops.ransac import triangulate_two_view
+from slam_tpu_torch.ops.stamp import Stamper
 from slam_tpu_torch.params import Parameters, ParametersSlam, StaticSettings
 from slam_tpu_torch.precision import pin_full_f32
+from slam_tpu_torch.utils import timer
 
 take = ba.take
 
@@ -137,6 +140,37 @@ class DeviceVOConfig(NamedTuple):
 # fields carried as int32 bit patterns here and as uint32 in the JAX package
 _DESC_FIELDS = ("lm_desc", "prev_desc", "sig_desc")
 N_TRACKED = 8
+# the frame step's stages, in order, each ended by a stamp: the ORB
+# front-end; map matching and the pose LM; depth refinement, landmark
+# creation, culling and the window's bookkeeping; loop retrieval
+STEP_STAGES = ("frontend", "track", "landmarks", "retrieval")
+
+
+def stamp_stages(cfg: "DeviceVOConfig", T: int) -> tuple:
+    """The stage each stamp of a T-frame chunk ends, in order: the step's
+    stages a frame, ``window_ba`` after every ``window_ba_every`` frames
+    (with a window), and ``snaps`` (the stacked outputs and the snapshot
+    rows) last. A chunk writes one more stamp, at its start."""
+    out = []
+    for t in range(T):
+        out.extend(STEP_STAGES)
+        if cfg.window > 0 and (t + 1) % cfg.window_ba_every == 0:
+            out.append("window_ba")
+    out.append("snaps")
+    return tuple(out)
+
+
+# the stamper of the chunk running on this thread (``_ChunkGraph.chunk``),
+# so that the step takes no argument for it and a step wrapped by a caller
+# still stamps
+_STAMP = threading.local()
+
+
+def _stamp() -> None:
+    """End a stage of the chunk running on this thread, if it stamps."""
+    stamper = getattr(_STAMP, "stamper", None)
+    if stamper is not None:
+        stamper()
 
 
 def _frontend_spec(settings: StaticSettings, width: int, height: int
@@ -521,6 +555,8 @@ def make_vo_step(cfg: DeviceVOConfig, camera=None,
             _loop_codebook(cfg.loop_words).view(np.int32)).to(device)
 
     def step(state: VOState, image, odom_delta):
+        """One frame; inside a stamping chunk, each of ``STEP_STAGES``
+        ends with a stamp."""
         pin_full_f32()
         S = image.shape[0]
         dev = image.device
@@ -530,6 +566,7 @@ def make_vo_step(cfg: DeviceVOConfig, camera=None,
         tvalid = torch.zeros(S, N_TRACKED, dtype=torch.bool, device=dev)
         pts, octv, _, desc, feat_valid = extract(image.to(torch.float32),
                                                  txy, tvalid, spec)
+        _stamp()
         N = pts.shape[1]
         pose_pred = odom_delta @ state.pose_cw
 
@@ -547,6 +584,7 @@ def make_vo_step(cfg: DeviceVOConfig, camera=None,
         pose_opt = _pose_ba(state, pose_pred, meas, matched, cfg,
                             focal * cfg.obs_weight_scale * maturity)
         pose_cw = torch.where(have_map[:, None, None], pose_opt, pose_pred)
+        _stamp()
 
         # --- landmark bookkeeping (matched is indexed by landmark row)
         lm_last_seen = torch.where(matched, fidx[:, None], state.lm_last_seen)
@@ -601,6 +639,7 @@ def make_vo_step(cfg: DeviceVOConfig, camera=None,
             wobs_valid = _set_rows(wobs_valid, new_slot,
                                    (fidx > 0)[:, None].expand(new_slot.shape),
                                    col=prev_col)
+        _stamp()
 
         # --- loop-candidate retrieval (BoW-index analogue)
         sig_ring, sig_frame = state.sig_ring, state.sig_frame
@@ -686,11 +725,13 @@ def make_vo_step(cfg: DeviceVOConfig, camera=None,
             sig_pc=sig_pc, sig_desc=sig_desc, sig_obs=sig_obs,
             sig_pvalid=sig_pvalid, sig_pose=sig_pose,
             sig_octave=sig_octave)
-        return new_state, VOStepOut(
+        out = VOStepOut(
             pose_cw=pose_cw,
             n_matched=torch.sum(matched, dim=1, dtype=torch.int32),
             n_new=n_new, loop_frame=loop_frame.to(torch.int32),
             loop_score=loop_score)
+        _stamp()
+        return new_state, out
 
     return step, spec
 
@@ -991,14 +1032,17 @@ def _clone(nt):
 
 class _Shape:
     """The fixed buffers of one chunk shape: the inputs (S, T, H, W) and
-    (S, T, 4, 4), the stacked outputs and snapshot rows, and the graph
-    captured over them."""
+    (S, T, 4, 4), the stacked outputs and snapshot rows, the chunk's stage
+    stamps (``stamp_stages``), and the graph captured over them."""
 
-    def __init__(self, images: torch.Tensor, odom: torch.Tensor, device):
+    def __init__(self, images: torch.Tensor, odom: torch.Tensor,
+                 n_stamps: int, device):
         self.images = torch.empty(images.shape, dtype=images.dtype,
                                   device=device)
         self.odom = torch.empty(odom.shape, dtype=torch.float32,
                                 device=device)
+        self.stamps = torch.zeros(n_stamps, dtype=torch.int64,
+                                  device=device)
         self.out: Optional[VOStepOut] = None
         self.snaps: Optional[SnapOut] = None
         self.warm = False
@@ -1050,32 +1094,44 @@ class _ChunkGraph:
         self.capture_seconds = []
 
     def chunk(self, state: VOState, images: torch.Tensor,
-              odom: torch.Tensor):
+              odom: torch.Tensor, stamps: Optional[torch.Tensor] = None):
         """The chunk as a function: (state, (S, T, H, W), (S, T, 4, 4)) ->
         (state, VOStepOut stacked to (S, T, ...), SnapOut or None). No
-        value is read back to the host."""
+        value is read back to the host. With ``stamps`` (int64, one more
+        slot than ``stamp_stages(cfg, T)``), the chunk stamps its start and
+        the end of each of those stages into it, in stream order."""
         cfg = self.cfg
         T = images.shape[1]
         G = cfg.window_ba_every
         if cfg.window > 0:
             assert T % G == 0, (
                 f"chunk length {T} not divisible by window_ba_every={G}")
-        f0 = state.frame_idx
-        outs = []
-        for t in range(T):
-            state, out = self._step(state, images[:, t], odom[:, t])
-            outs.append(out)
-            if cfg.window > 0 and (t + 1) % G == 0:
-                state = _window_ba(state, cfg, self._focal)
-        out = VOStepOut(*(torch.stack(x, dim=1) for x in zip(*outs)))
-        return state, out, _chunk_snaps(cfg, state, f0, T)
+        outer = getattr(_STAMP, "stamper", None)
+        _STAMP.stamper = Stamper(stamps) if stamps is not None else None
+        try:
+            _stamp()
+            f0 = state.frame_idx
+            outs = []
+            for t in range(T):
+                state, out = self._step(state, images[:, t], odom[:, t])
+                outs.append(out)
+                if cfg.window > 0 and (t + 1) % G == 0:
+                    state = _window_ba(state, cfg, self._focal)
+                    _stamp()
+            out = VOStepOut(*(torch.stack(x, dim=1) for x in zip(*outs)))
+            snaps = _chunk_snaps(cfg, state, f0, T)
+            _stamp()
+        finally:
+            _STAMP.stamper = outer
+        return state, out, snaps
 
     def load(self, state: VOState) -> None:
         """Copy ``state`` into this shard's state buffers."""
         _copy_fields(self.state, state)
 
     def _run_into(self, b: _Shape) -> None:
-        st, out, snaps = self.chunk(self.state, b.images, b.odom)
+        st, out, snaps = self.chunk(self.state, b.images, b.odom,
+                                    stamps=b.stamps)
         if b.out is None:                    # eager, never inside a capture
             b.out = VOStepOut(*(torch.empty_like(t) for t in out))
             if snaps is not None:
@@ -1098,9 +1154,11 @@ class _ChunkGraph:
             # the wrapper counted the launches it recorded; none ran
             b.k1_launches = k1_ops.hamming_argmin.launches - before
             k1_ops.hamming_argmin.launches -= b.k1_launches
+        timer.count("k1.launch", -b.k1_launches)
         b.graph = graph
         torch.cuda.synchronize(self.device)
         self.capture_seconds.append(time.perf_counter() - t0)
+        timer.add("vo.capture", self.capture_seconds[-1])
 
     def run(self, images: torch.Tensor, odom: torch.Tensor,
             replay: bool) -> _Shape:
@@ -1110,20 +1168,26 @@ class _ChunkGraph:
         key = (tuple(images.shape), images.dtype)
         b = self._shapes.get(key)
         if b is None:
-            b = self._shapes[key] = _Shape(images, odom, self.device)
+            b = self._shapes[key] = _Shape(
+                images, odom, len(stamp_stages(self.cfg, images.shape[1])) + 1,
+                self.device)
         on_card = self.device.type == "cuda"
         with torch.cuda.device(self.device) if on_card \
                 else contextlib.nullcontext():
-            _copy_in(b.images, images)
-            _copy_in(b.odom, odom)
+            with timer.section("vo.copy_in"):
+                _copy_in(b.images, images)
+                _copy_in(b.odom, odom)
             if on_card and replay and b.warm:
                 if b.graph is None:
                     self._capture(b)
-                b.graph.replay()
+                with timer.section("vo.replay"):
+                    b.graph.replay()
                 with k1_ops.COUNT_LOCK:
                     k1_ops.hamming_argmin.launches += b.k1_launches
+                timer.count("k1.launch", b.k1_launches)
             else:
-                self._run_into(b)
+                with timer.section("vo.eager"):
+                    self._run_into(b)
                 b.warm = True
         return b
 
@@ -1187,6 +1251,18 @@ class BatchedDeviceVO:
         self.reset()
 
     @property
+    def last_stamps(self) -> Optional[torch.Tensor]:
+        """The last chunk's stage stamps, (shards, len(stamp_stages) + 1)
+        int64 on ``self.device``: a copy, enqueued behind that chunk, of
+        what it wrote (ns on each shard device's clock; ``perf_counter_ns``
+        on the CPU); ``stamp_stages(cfg, T)`` names the work between two
+        neighbours. None before the first chunk."""
+        if self._last is None:
+            return None
+        return torch.cat([b.stamps[None].to(self.device, copy=True)
+                          for b in self._last])
+
+    @property
     def state(self) -> VOState:
         """A copy of the whole batch's state on ``self.device``; later
         chunks do not change it."""
@@ -1216,6 +1292,7 @@ class BatchedDeviceVO:
                 fresh = fresh._replace(pose_cw=part, prev_pose_cw=part.clone())
             c.load(fresh)
         self.last_snaps = None
+        self._last = None
 
     def advance(self, images, odom_deltas) -> VOStepOut:
         """images: (S, T, H, W) uint8; odom_deltas: (S, T, 4, 4). Returns
@@ -1230,6 +1307,7 @@ class BatchedDeviceVO:
         twin, for comparison and for profiles by stage."""
         return self._advance(images, odom_deltas, replay=False)
 
+    @timer.timed_as("vo.advance")
     def _advance(self, images, odom_deltas, replay: bool) -> VOStepOut:
         n = len(self._chunks)
         images = torch.chunk(torch.as_tensor(images), n)
@@ -1238,6 +1316,7 @@ class BatchedDeviceVO:
         # every shard's chunk is enqueued before any result is read
         shapes = [c.run(x, d, replay)
                   for c, x, d in zip(self._chunks, images, odom)]
+        self._last = shapes
         self.last_snaps = None if shapes[0].snaps is None else _cat_shards(
             [_clone(b.snaps) for b in shapes], self.device)
         return _cat_shards([_clone(b.out) for b in shapes], self.device)

@@ -46,7 +46,7 @@ from slam_tpu_torch.pipeline.mapper_helpers import (add_keyframe_backend,
                                                     make_keyframe_decision)
 from slam_tpu_torch.precision import pin_full_f32
 from slam_tpu_torch.utils.stats import BaStats
-from slam_tpu_torch.utils.timer import TIME_STATS
+from slam_tpu_torch.utils.timer import timed_as
 from slam_tpu_torch.map.serialization import load_map_db, save_map_db, save_trajectory_csv
 
 
@@ -258,6 +258,7 @@ class Mapper:
 
     # ------------------------------------------------------------------
 
+    @timed_as("mapper.prefetch")
     def prefetch(self, mapper_input: MapperInput) -> None:
         """Dispatch the front-end for a FUTURE frame asynchronously so its
         device work overlaps the current frame's host pipeline. Safe to call
@@ -268,11 +269,10 @@ class Mapper:
                         mapper_input.frame, mapper_input.track_pts,
                         mapper_input.track_ids)
 
+    @timed_as("mapper.add_frame")
     def advance(self, mapper_input: MapperInput) -> Tuple[np.ndarray, List[dict]]:
         """Process one frame; returns (pose, point cloud)
         (reference: mapper.cpp:345-404)."""
-        if TIME_STATS is not None:
-            TIME_STATS.start_frame()
         p = self.settings.parameters.slam
         if not p.useFrontendSlam:
             return self._backend_only(mapper_input)

@@ -987,7 +987,6 @@ def check_reprojection_error(pos: np.ndarray, kf: Keyframe,
     return err <= CHI2_INV2D * sigma2
 
 
-@timed
 def triangulate_map_point(map_db: MapDB, map_point: MapPoint,
                           settings: StaticSettings,
                           method: str = "tme") -> None:

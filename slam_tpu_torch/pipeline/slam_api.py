@@ -22,6 +22,7 @@ import numpy as np
 from slam_tpu_torch.map.keyframe import MapperInput, Pose
 from slam_tpu_torch.params import Parameters
 from slam_tpu_torch.pipeline.mapper import Mapper
+from slam_tpu_torch.utils.timer import timed_as
 
 MAX_QUEUED_RESULTS = 100  # reference: slam_implementation.cpp:57
 
@@ -58,6 +59,7 @@ class Slam:
 
     # ------------------------------------------------------------------
 
+    @timed_as("session.add_frame")
     def add_frame(self, frame, pose_trail: List[Pose], features_ids,
                   features_pts, color_frame=None, camera=None,
                   feature_depths=None, depth_map=None,

@@ -8,10 +8,15 @@ return outlives the next chunk; a state set between chunks (a rebase),
 values; and the chunk traces under fake tensors with no tensor made from
 host data, so that a data-dependent host read or a host-to-device copy
 added to the step or the window BA fails here and not first in a capture
-on the card. Sizes: S = 2 sequences of 160x120, chunks of T = 4, window 4.
+on the card, with its stage stamps in it. A chunk's stamps come in stage
+order and the consumer of a ``DeviceSlam`` session turns them into device
+time by stage while timing is on. Sizes: S = 2 sequences of 160x120,
+chunks of T = 4, window 4 (the card's stamp test runs the main path's
+640x480).
 
 The ``cuda`` tests replay the graph on a card, bit-equal to the eager twin
-with the K1 launches counted, and import no JAX:
+with the K1 launches counted, and hold a replay's stamps to its profiled
+device time; they import no JAX:
 
     python -m pytest tests/test_torch_chunk_graph.py --noconftest -m cuda
 """
@@ -25,6 +30,7 @@ from torch.fx.experimental.proxy_tensor import make_fx
 from slam_tpu_torch.ops import hamming_argmin as k1
 from slam_tpu_torch.pipeline import device_vo as tvo
 from slam_tpu_torch.pipeline.device_slam import DeviceSlam, DeviceSlamParams
+from slam_tpu_torch.utils import timer
 from slam_tpu_torch.utils.synthetic import (default_camera, exact_odometry,
                                             make_world, render_frame)
 
@@ -221,15 +227,18 @@ def test_device_slam_session_repeats_the_functional_loop():
 
 
 def _trace(vo, images, odom):
-    """make_fx of one shard's chunk function under fake tensors."""
+    """make_fx of one shard's chunk function, with its stage stamps, under
+    fake tensors."""
     prog = vo._chunks[0]
     state = prog.state
     n = len(state)
+    stamps = torch.zeros(len(tvo.stamp_stages(prog.cfg, images.shape[1]))
+                         + 1, dtype=torch.int64)
     with FakeTensorMode(allow_non_fake_inputs=True) as mode:
         args = [mode.from_tensor(t) for t in (*state, torch.as_tensor(images),
-                                              torch.as_tensor(odom))]
-        return make_fx(lambda *a: prog.chunk(tvo.VOState(*a[:n]),
-                                             a[n], a[n + 1]))(*args)
+                                              torch.as_tensor(odom), stamps)]
+        return make_fx(lambda *a: prog.chunk(
+            tvo.VOState(*a[:n]), a[n], a[n + 1], stamps=a[n + 2]))(*args)
 
 
 def _host_made(gm):
@@ -250,6 +259,11 @@ def test_chunk_traces_under_fake_tensors(scene):
     ops = {str(n.target) for n in gm.graph.nodes if n.op == "call_function"}
     assert {"aten._linalg_solve_ex.default", "aten.index_put_.default",
             "aten.linalg_inv_ex.default"} <= ops
+    # one stamp node a slot, in slot order: T x 4 step stages, T / 4
+    # window BAs, the snapshot rows and the chunk's start
+    slots = [n.args[1] for n in gm.graph.nodes
+             if str(n.target) == "slam_tpu_torch.stamp.default"]
+    assert slots == list(range(T * 4 + T // 4 + 2))
 
 
 @pytest.mark.parametrize("fault", ["host read", "host tensor"])
@@ -278,6 +292,78 @@ def test_fake_trace_catches_what_a_capture_refuses(scene, monkeypatch,
             _trace(vo, images, odom)
     else:
         assert _host_made(_trace(vo, images, odom))
+
+
+def test_chunk_stamps_come_in_stage_order(scene):
+    """One eager chunk on the CPU: a stamp at its start, then one at the
+    end of each of the step's four stages a frame, of each window BA and of
+    the snapshot rows, non-decreasing (host ``perf_counter_ns``); the
+    stages' seconds add up to the first-to-last stamp."""
+    from slam_tpu_torch.ops.stamp import durations
+
+    stages = tvo.stamp_stages(CFG, T)
+    assert stages == (tvo.STEP_STAGES * 4 + ("window_ba",)) * (T // 4) \
+        + ("snaps",)
+    vo = _vo(scene)
+    assert vo.last_stamps is None
+    vo.advance(*_chunk(scene, 0))
+    st = vo.last_stamps
+    assert st.dtype == torch.int64 and st.shape == (1, len(stages) + 1)
+    st = st[0].numpy()
+    assert (st > 0).all() and (np.diff(st) >= 0).all()
+    d = durations(st, stages)
+    assert set(d) == set(tvo.STEP_STAGES) | {"window_ba", "snaps"}
+    assert sum(d.values()) == pytest.approx((st[-1] - st[0]) * 1e-9,
+                                            rel=1e-9)
+    # the copy does not change with the next chunk; the next chunk's
+    # stamps start after this chunk's last
+    vo.advance(*_chunk(scene, 1))
+    assert vo.last_stamps[0, 0] >= st[-1]
+
+
+def test_device_slam_adds_stage_device_time():
+    """While timing is on, each consumed chunk of a ``DeviceSlam`` session
+    on the CPU adds its stages' time (``vo.device.<stage>``) and the
+    consumer's spans to ``TIME_STATS.totals`` and ``counts``: what the
+    benchmark's readers are handed."""
+    w, h, frames, chunk = 160, 120, 16, 4
+    cam = default_camera(w, h)
+    world = make_world(n_frames=frames, n_landmarks=400, seed=6,
+                       trajectory="loop", lap_frames=32, camera=cam)
+    patches = np.random.default_rng(2).integers(
+        40, 255, (400, 11, 11)).astype(np.uint8)
+    images = np.stack([render_frame(world, patches, i, w, h)
+                       for i in range(frames)])[None]
+    deltas = exact_odometry(world, frames)[None]
+    slam = DeviceSlam(CFG, batch=1, camera=cam, device="cpu")
+    slam.vo.reset(np.stack(world.poses_cw[:1]).astype(np.float32))
+    stats = timer.enable_timing()
+    try:
+        for c in range(frames // chunk):
+            sl = slice(c * chunk, (c + 1) * chunk)
+            slam.advance(images[:, sl], deltas[:, sl])
+        slam.finish()
+    finally:
+        timer.disable_timing()
+    rec = {k: [stats.totals[k], stats.counts[k]] for k in stats.totals}
+    n = frames // chunk
+    for stage in tvo.STEP_STAGES + ("window_ba", "snaps"):
+        total, count = rec[f"vo.device.{stage}"]
+        assert count == n and total > 0, stage
+    for name in ("slam.advance", "vo.advance", "vo.copy_in", "vo.eager",
+                 "slam.to_host", "slam.consume", "slam.mirror",
+                 "slam.gates"):
+        assert rec[name][1] == n, name
+    spans = {s.id: s for s in stats.spans}
+    for s in stats.spans:
+        if s.name in ("slam.mirror", "slam.gates"):
+            assert spans[s.parent].name == "slam.consume"
+        if s.name == "vo.copy_in":
+            assert spans[s.parent].name == "vo.advance"
+    # the stages cover the eager chunks' own work
+    device = sum(rec[f"vo.device.{s}"][0]
+                 for s in tvo.STEP_STAGES + ("window_ba", "snaps"))
+    assert 0.9 * rec["vo.eager"][0] <= device <= rec["vo.eager"][0]
 
 
 def _need_card():
@@ -324,3 +410,66 @@ def test_set_state_under_replay_on_card(scene):
     _assert_equal(vo.advance(*_chunk(scene, 2)),
                   twin._advance_eager(*_chunk(scene, 2)), "replay after set")
     _assert_equal(vo.state, twin.state, "state")
+
+
+@pytest.mark.cuda
+def test_replay_stamps_match_profiled_busy_time_on_card():
+    """On the card, at the main path's size (S = 4 sequences of 640x480,
+    chunks of 8, ``chip_smoke.py``'s configuration): a replayed chunk's
+    stamps never go back, and its stages' device time (first to last
+    stamp) is within 10 % of the busy time of the same replay under
+    ``torch.profiler`` (the union of its kernels' intervals; the copies in
+    and out lie outside the stamps). The stamped replay runs unprofiled and
+    the profiled one again from the same state: under the profiler the
+    graph's kernels spread apart (its device span grows by about half), and
+    the stamps read that span."""
+    _need_card()
+    w, h, seqs, t, chunks = 640, 480, 4, 8, 3
+    cam = default_camera(w, h)
+    worlds = [make_world(n_frames=t * chunks, n_landmarks=500, seed=30 + i,
+                         trajectory="loop", lap_frames=64, camera=cam)
+              for i in range(seqs)]
+    patches = np.random.default_rng(31).integers(
+        40, 255, (500, 11, 11)).astype(np.uint8)
+    images = np.stack([np.stack([render_frame(wd, patches, i, w, h)
+                                 for i in range(t * chunks)])
+                       for wd in worlds])
+    deltas = np.stack([exact_odometry(wd, t * chunks) for wd in worlds])
+    cfg = tvo.DeviceVOConfig(width=w, height=h, lm_capacity=512,
+                             max_keypoints=600, window=8, window_ba_every=4,
+                             loop_every=4, loop_slots=32, loop_words=512,
+                             loop_min_gap=16, loop_points=192)
+    vo = tvo.BatchedDeviceVO(cfg, batch=seqs, camera=cam, device="cuda")
+    vo.reset(np.stack([wd.poses_cw[0] for wd in worlds]).astype(np.float32))
+
+    def chunk(c):
+        return images[:, c * t:(c + 1) * t], deltas[:, c * t:(c + 1) * t]
+
+    for c in range(2):                     # the eager chunk, the capture
+        vo.advance(*chunk(c))
+    before = vo.state
+    out = vo.advance(*chunk(2))
+    st = vo.last_stamps[0].cpu().numpy()
+    assert st.shape == (len(tvo.stamp_stages(cfg, t)) + 1,)
+    assert (np.diff(st) >= 0).all()
+    stamped = (st[-1] - st[0]) * 1e-9
+    vo.state = before
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        again = vo.advance(*chunk(2))
+        torch.cuda.synchronize()
+    _assert_equal(again, out, "the same replay again")
+    dev = sorted((e.time_range.start, e.time_range.end)
+                 for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not e.name.startswith(("Memcpy", "Memset")))
+    busy, end = 0.0, float("-inf")
+    for s, e in dev:
+        if s > end:
+            busy, end = busy + e - s, e
+        elif e > end:
+            busy, end = busy + e - end, e
+    busy *= 1e-6                                        # us -> s
+    assert abs(stamped - busy) <= 0.1 * busy, (stamped, busy)

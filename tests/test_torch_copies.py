@@ -5,7 +5,12 @@ One difference is allowed, in ``native/__init__.py``: the reference builds
 ``libhostops.so`` into its package directory, the port builds it into the
 git-ignored ``build/slam_tpu_torch/`` under a name keyed by the source hash,
 the flags and the host CPU. Every other top-level definition of that module
-is the reference's; ``hostops.cpp`` is a byte copy."""
+is the reference's; ``hostops.cpp`` is a byte copy.
+
+``utils/timer.py`` is no longer a copy: the port's timer records spans,
+counters and device durations. It keeps every public name of the
+reference's, save ``TimeStats.start_frame``, which the reference sets and
+never reads."""
 import ast
 import os
 import re
@@ -15,7 +20,7 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-COPIES = ["ids.py", "utils/timer.py", "utils/stats.py", "utils/commands.py",
+COPIES = ["ids.py", "utils/stats.py", "utils/commands.py",
           "utils/ascii_viz.py", "geometry/triangulation.py",
           "map/__init__.py", "map/feature_search.py", "map/mp_store.py",
           "map/map_point.py", "map/keyframe.py", "map/mapdb.py",
@@ -71,6 +76,18 @@ def test_native_differs_only_in_its_build_location():
     # the named difference: the port never writes into its package
     assert "_LIB_PATH" in ref and "_LIB_PATH" not in port
     assert "build" in port["_BUILD_DIR"]
+
+
+def test_timer_keeps_the_reference_names():
+    ref = _top_level(_rewrite(_read("slam_tpu/utils/timer.py")))
+    port = _top_level(_read("slam_tpu_torch/utils/timer.py"))
+    public = {n for n in ref if not n.startswith(("_", "import", "from"))}
+    assert public <= set(port), public - set(port)
+    from slam_tpu_torch.utils import timer
+
+    methods = {"time", "table", "reset"}
+    assert all(callable(getattr(timer.TimeStats, m)) for m in methods)
+    assert not hasattr(timer.TimeStats, "start_frame")
 
 
 def test_native_source_is_a_byte_copy():

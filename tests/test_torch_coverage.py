@@ -50,6 +50,9 @@ DROPPED = {
     ("parallel/multichip.py", "make_key_banks"):
         "JAX PRNG key banks; the port's RANSAC takes its random banks "
         "injected",
+    ("utils/timer.py", "TimeStats.start_frame"):
+        "set and never read; the port's spans keep their own per-thread "
+        "parents instead",
     ("pipeline/device_vo.py", "BatchedDeviceVO._put"):
         "device_put of a chunk's inputs; the port copies them into the "
         "chunk graph's fixed buffers",

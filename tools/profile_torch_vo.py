@@ -11,17 +11,19 @@ twin (``BatchedDeviceVO._advance_eager``, every op issued from Python):
 
   1. its wall, unprofiled: host clock between two synchronises, ``--reps``
      times, each in a fresh session;
-  2. per-stage wall: each stage of the frame step (and the window BA) timed
-     between a synchronise before and after it;
-  3. a ``torch.profiler`` trace: device busy time (the union of the CUDA
+  2. a ``torch.profiler`` trace: device busy time (the union of the CUDA
      activities' intervals), their count, and the top device rows. The idle
      share is 1 - busy / the median unprofiled wall of step 1.
 
 Then on the replayed CUDA graph (``advance``; one instance whose graph was
 captured in a warm-up, reset and advanced to the chunk by replays before
-each measurement): the chunk's unprofiled wall ``--reps`` times, and one
-replay under ``torch.profiler`` with its device busy time, activity and
-kernel counts and idle share against the replayed wall.
+each measurement): the chunk's unprofiled wall ``--reps`` times, with the
+device time of each stage from the stamps the replay writes on the card's
+clock (``BatchedDeviceVO.last_stamps``, the stages of
+``device_vo.stamp_stages``; the replay keeps its overlap, where timing each
+stage between synchronises would remove it), and one replay under
+``torch.profiler`` with its device busy time, activity and kernel counts
+and idle share against the replayed wall.
 
 Prints a summary and writes everything to ``--out`` as JSON. Needs one card.
 """
@@ -38,11 +40,9 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import chip_smoke
-from slam_tpu_torch.pipeline import device_vo
-from slam_tpu_torch.pipeline.device_vo import BatchedDeviceVO, DeviceVOConfig
-
-STAGES = ("extract", "_match_map", "_pose_ba", "_refine_depths",
-          "_create_landmarks", "hamming_argmin", "_window_ba")
+from slam_tpu_torch.ops.stamp import durations
+from slam_tpu_torch.pipeline.device_vo import (BatchedDeviceVO, DeviceVOConfig,
+                                               stamp_stages)
 
 
 def main():
@@ -90,29 +90,6 @@ def main():
     walls = [timed_chunk(session()._advance_eager) for _ in range(args.reps)]
     wall = statistics.median(walls)
 
-    acc = {name: [0.0, 0] for name in STAGES}
-
-    def synced(name, fn):
-        def wrapper(*a, **k):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*a, **k)
-            torch.cuda.synchronize()
-            acc[name][0] += time.perf_counter() - t0
-            acc[name][1] += 1
-            return out
-        return wrapper
-
-    originals = {name: getattr(device_vo, name) for name in STAGES}
-    vo = session()
-    try:
-        for name, fn in originals.items():
-            setattr(device_vo, name, synced(name, fn))
-        synced_wall = timed_chunk(vo._advance_eager)
-    finally:
-        for name, fn in originals.items():
-            setattr(device_vo, name, fn)
-
     prof, act, profiled_wall = profiled(session()._advance_eager)
     rows = sorted(prof.key_averages(),
                   key=lambda r: r.self_device_time_total, reverse=True)
@@ -133,9 +110,15 @@ def main():
         torch.cuda.synchronize()
         return graph.advance
 
-    replay_walls = [timed_chunk(replayed_to_chunk())
-                    for _ in range(args.reps)]
+    replay_walls, stage_runs = [], []
+    for _ in range(args.reps):
+        replay_walls.append(timed_chunk(replayed_to_chunk()))
+        stage_runs.append(durations(graph.last_stamps.cpu().numpy(),
+                                    stamp_stages(cfg, C)))
     replay_wall = statistics.median(replay_walls)
+    stages = {k: statistics.median(r[k] for r in stage_runs)
+              for k in stage_runs[0]}
+    stamped = sum(stages.values())
     _, ract, rprofiled_wall = profiled(replayed_to_chunk())
 
     frames = chip_smoke.S * C
@@ -144,10 +127,6 @@ def main():
         sequences=chip_smoke.S, frames_per_sequence=C,
         wall_s=walls, wall_median_s=wall,
         keyframes_per_s=frames / wall,
-        stage_synced_wall_s=synced_wall,
-        stages={k: dict(total_s=v[0], calls=v[1],
-                        ms_per_call=1e3 * v[0] / max(v[1], 1),
-                        share=v[0] / synced_wall) for k, v in acc.items()},
         profiled_wall_s=profiled_wall,
         device_busy_ms=act["busy_ms"], device_span_ms=act["span_ms"],
         device_activities=act["activities"],
@@ -159,6 +138,7 @@ def main():
         replay=dict(wall_s=replay_walls, wall_median_s=replay_wall,
                     keyframes_per_s=frames / replay_wall,
                     capture_s=graph._chunks[0].capture_seconds,
+                    stage_device_s=stages, stamped_s=stamped,
                     profiled_wall_s=rprofiled_wall,
                     device_busy_ms=ract["busy_ms"],
                     device_span_ms=ract["span_ms"],
@@ -176,11 +156,6 @@ def main():
           f"torch {torch.__version__}")
     print("unprofiled wall: " + ", ".join(f"{w:.4f}" for w in walls)
           + f" s; median {wall:.4f} s = {frames / wall:.2f} keyframes/s")
-    print(f"stage-synchronised wall {synced_wall:.4f} s:")
-    for k, v in sorted(result["stages"].items(),
-                       key=lambda kv: -kv[1]["total_s"]):
-        print(f"  {k:18s} {v['ms_per_call']:9.3f} ms x {v['calls']:3d} "
-              f"= {100 * v['share']:5.1f} %")
     if act["activities"]:
         print(f"profiled wall {profiled_wall:.4f} s; device busy "
               f"{act['busy_ms']:.3f} ms in {act['activities']} activities "
@@ -197,6 +172,10 @@ def main():
           + ", ".join(f"{w:.4f}" for w in replay_walls)
           + f" s; median {replay_wall:.4f} s = {frames / replay_wall:.2f} "
           f"keyframes/s; capture {rep['capture_s'][0]:.3f} s")
+    print(f"replayed graph, device time by stage from its stamps "
+          f"(median of {args.reps}; {1e3 * stamped:.3f} ms stamped):")
+    for k, v in sorted(stages.items(), key=lambda kv: -kv[1]):
+        print(f"  {k:10s} {1e3 * v:9.3f} ms = {100 * v / stamped:5.1f} %")
     if ract["activities"]:
         print(f"replayed graph, profiled wall {rprofiled_wall:.4f} s; device "
               f"busy {ract['busy_ms']:.3f} ms of a {ract['span_ms']:.3f} ms "
