@@ -56,6 +56,10 @@ DROPPED = {
     ("pipeline/device_vo.py", "BatchedDeviceVO._put"):
         "device_put of a chunk's inputs; the port copies them into the "
         "chunk graph's fixed buffers",
+    ("ops/frontend.py", "OrbExtractor._tracked_device"):
+        "a memo of the tracked points' device copies; the port copies them "
+        "from pinned memory into its extraction graph's fixed buffers "
+        "(ops/frontend.EXTRACT_GRAPHS) on every call",
 }
 
 

@@ -7,7 +7,8 @@ pyramid, slots (pts, octave, valid), descriptors and words are equal;
 with each package building its own pyramid (they differ by one gray at a
 few rint ties), words are equal wherever descriptors are. Orientation is
 held within 1e-2 degrees, as in tests/test_torch_frontend.py. A prefetched
-frame collects the same result as a direct call."""
+frame collects the same result as a direct call, and later calls of a
+geometry go through its fixed buffers (``ops/frontend.EXTRACT_GRAPHS``)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -114,7 +115,11 @@ def test_prefetch_then_collect_equals_a_direct_call(frame):
                  "track_ids", "words"):
         np.testing.assert_array_equal(getattr(collected, name),
                                       getattr(direct, name), err_msg=name)
-    # the tracked-point buffers are reused while their contents hold
-    buf = ex._dev_txy
-    ex.detect_and_extract(frame, TRACKED.copy(), TRACK_IDS)
-    assert ex._dev_txy is buf
+    # later calls of the geometry copy into its fixed input buffers
+    entry = next(e for e in tfront.EXTRACT_GRAPHS._entries.values()
+                 if e.dims["slots"] == ex.num_slots and e.inputs is not None)
+    bufs = [t.data_ptr() for t in entry.inputs]
+    again = ex.detect_and_extract(frame, TRACKED[:2], TRACK_IDS[:2])
+    assert [t.data_ptr() for t in entry.inputs] == bufs
+    assert int(entry.inputs[2].sum()) == 2
+    np.testing.assert_array_equal(again.pts[:2], TRACKED[:2])
