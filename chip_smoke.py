@@ -756,20 +756,42 @@ def make_interactive_inputs(cam):
     return world, frames, odom
 
 
-def _eager_twins():
+def _eager_twins(plan=None):
     """``ops/ba.solve_ba`` and ``solve_ba_two_stage`` as their op-by-op
     twins, with the inputs (pinned host tensors) moved to ``device``
-    first."""
+    first. ``plan`` ({entry: [``BA_GRAPHS.last_served()`` of each call of
+    a graphed session, in order]}) solves each call at the sizes that
+    served the graphed call: where a covering bucket took it, on the
+    problem padded to that bucket's sizes (``ops/ba.pad_into``), the result
+    cut back. The twins use up the plan's lists."""
     from slam_tpu_torch.ops import ba
 
-    def twin(eager):
+    def twin(entry, eager):
+        served = (plan or {}).get(entry, [])
+
         def run(*args, device=None, **kw):
-            move = lambda t: t.to(device, non_blocking=True)  # noqa: E731
-            return eager(*(type(a)(*map(move, a))
-                           if isinstance(a, ba.BAProblem) else move(a)
-                           for a in args), **kw)
+            own = [t.to(device, non_blocking=True) for a in args
+                   for t in (a if isinstance(a, ba.BAProblem) else (a,))]
+            assert plan is None or served, \
+                f"more {entry} calls than the graphed session made"
+            by = served.pop(0) if plan is not None else None
+            n = len(ba.BAProblem._fields)
+            if by is None or not by["covered"]:
+                return eager(ba.BAProblem(*own[:n]), *own[n:], **kw)
+            tensors = []
+            for f, t in zip(ba.ENTRY_FIELDS[entry], own):
+                axis = ba.PADDING.get(f, (None,))[0]
+                tensors.append(t.new_empty(t.shape) if axis is None else
+                               t.new_empty(t.shape[:1] + (by[axis],)
+                                           + t.shape[2:]))
+            ba.pad_into(entry, tensors, own)
+            res = eager(ba.BAProblem(*tensors[:n]), *tensors[n:], **kw)
+            k, m, o = (own[i].shape[1] for i in (0, 2, 4))
+            return ba.BAResult(res.poses[:, :k], res.points[:, :m],
+                               res.obs_chi2[:, :o], res.cost)
         return run
-    return twin(ba.solve_ba_eager), twin(ba.solve_ba_two_stage_eager)
+    return (twin("solve_ba", ba.solve_ba_eager),
+            twin("solve_ba_two_stage", ba.solve_ba_two_stage_eager))
 
 
 def _cache_text(c):
@@ -778,7 +800,8 @@ def _cache_text(c):
     return (f"{c['buckets']} buckets, {c['eager_runs']} eager runs, "
             f"{c['captures']} captures "
             f"({sum(cap):.3f} s, {max(cap, default=0):.3f} s the longest), "
-            f"{c['replays']} replays, pools {c['pool_bytes']} B")
+            f"{c['replays']} replays, {c['covers']} covered calls, "
+            f"pools {c['pool_bytes']} B")
 
 
 def _ba_sections(stats):
@@ -793,14 +816,19 @@ def phase_interactive(cam, world, frames, odom, smi):
     """``Slam.build`` -> ``add_frame`` -> ``end`` on the card: the session
     once as a warm-up (each BA bucket's first call eager, its second
     captured as a CUDA graph), then again, timed (replays), then once more
-    with the BA entries swapped for their op-by-op twins. Checks that the
-    graphed sessions equal the eager-twin session bit for bit (closures,
-    map points, every keyframe pose), that no global BA touches the BA
-    graph cache, the closure, consistency, the final keyframe's error
-    against the odometry's, K1's launches against the extractions and
-    device quantizations, and frame 0's words on CPU and card. Returns
-    one problem of every BA bucket the warm-up dispatched, for
-    ``phase_ba_graph``."""
+    with the BA entries swapped for their op-by-op twins. A bucket's first
+    call may be solved in a larger captured bucket that covers it (the BA
+    graph cache's cover), which rounds its float32 result as that bucket
+    does; so the twins solve each call at the sizes that served it in the
+    session they are held to (``_eager_twins``'s plan): once for the
+    warm-up, which covers, and once for the timed session where that one
+    was served otherwise. Checks that each graphed session equals its
+    eager-twin session bit for bit (closures, map points, every keyframe
+    pose), that no global BA touches the BA graph cache, the closure,
+    consistency, the final keyframe's error against the odometry's, K1's
+    launches against the extractions and device quantizations, and frame
+    0's words on CPU and card. Returns one problem of every BA bucket the
+    warm-up dispatched, for ``phase_ba_graph``."""
     from slam_tpu_torch import native
     from slam_tpu_torch.map.keyframe import MapperInput, Pose
     from slam_tpu_torch.ops import ba, bow
@@ -859,15 +887,28 @@ def phase_interactive(cam, world, frames, odom, smi):
                                  before, after)
         globals_run.append(1)
 
-    # one problem of every bucket, recorded in the warm-up
-    problems, run = {}, cache.run
+    # one problem of every bucket, recorded in the warm-up, and the bucket
+    # that served each call of a graphed session, for its eager twins
+    problems, plan, run = {}, {}, cache.run
 
     def recorded(entry, fn, tensors, device, **static):
         key = (entry, tuple(tuple(t.shape) for t in tensors),
                tuple(sorted(static.items())))
         if key not in problems:
             problems[key] = (entry, [t.clone() for t in tensors], static)
-        return run(entry, fn, tensors, device, **static)
+        out = run(entry, fn, tensors, device, **static)
+        plan.setdefault(entry, []).append(cache.last_served())
+        return out
+
+    def covers(p):
+        return sum(by["covered"] for calls in p.values() for by in calls)
+
+    def twin_session(p):
+        ba.solve_ba, ba.solve_ba_two_stage = _eager_twins(p)
+        eager, eager_wall = session()
+        ba.solve_ba, ba.solve_ba_two_stage = graphed
+        assert not any(p.values()), "the eager twins made fewer BA calls"
+        return eager, eager_wall
 
     mapper_helpers.global_bundle_adjust = global_untouched
     cache.run = recorded
@@ -876,7 +917,7 @@ def phase_interactive(cam, world, frames, odom, smi):
         cache.reset_counts()
         warm, warm_wall = session()     # warm-up: captures, allocator
         warm_counts, histogram = cache.counters(), cache.buckets()
-        del cache.run
+        warm_plan, plan = plan, {}
         stats = timer.enable_timing()
         cache.reset_counts()
         hamming_argmin.launches = 0
@@ -885,11 +926,19 @@ def phase_interactive(cam, world, frames, odom, smi):
         launches = hamming_argmin.launches
         quantized = bow.quantize.device_calls
         timed_counts = cache.counters()
+        timed_plan = plan
         timer.disable_timing()
+        del cache.run
+        held = [(name, got, covers(p)) for name, got, p in
+                (("warm-up", warm, warm_plan), ("timed", slam, timed_plan))]
         eager_stats = timer.enable_timing()
-        ba.solve_ba, ba.solve_ba_two_stage = _eager_twins()
-        eager, eager_wall = session()
-        ba.solve_ba, ba.solve_ba_two_stage = graphed
+        if covers(warm_plan) == covers(timed_plan) == 0:
+            eager, eager_wall = twin_session(warm_plan)
+            twins = [eager, eager]
+        else:
+            twins = [twin_session(warm_plan)[0]]
+            eager, eager_wall = twin_session(timed_plan)
+            twins.append(eager)
         timer.disable_timing()
         assert cache.counters() == timed_counts, "the eager twins used graphs"
     finally:
@@ -897,8 +946,8 @@ def phase_interactive(cam, world, frames, odom, smi):
         ba.solve_ba, ba.solve_ba_two_stage = graphed
         cache.__dict__.pop("run", None)
         timer.disable_timing()
-    edges_e, mps_e, poses_e = outcome(eager)
-    for name, got in (("warm-up", warm), ("timed", slam)):
+    for (name, got, _), eager in zip(held, twins):
+        edges_e, mps_e, poses_e = outcome(eager)
         edges, mps, poses = outcome(got)
         assert edges == edges_e and mps == mps_e \
             and poses.keys() == poses_e.keys(), (
@@ -927,11 +976,14 @@ def phase_interactive(cam, world, frames, odom, smi):
           f"{wall:.3f} s = {fps:.2f} frames/s (warm-up {warm_wall:.3f} s, "
           f"eager-twin BAs {eager_wall:.3f} s = "
           f"{IA_FRAMES / eager_wall:.2f} frames/s); the warm-up and the "
-          f"timed session equal the eager-twin session bit for bit; "
+          f"timed session equal their eager-twin sessions bit for bit "
+          f"({held[0][2]} and {held[1][2]} calls covered, solved by the "
+          f"twins at the covering bucket's sizes); "
           f"{len(db.keyframes)} keyframes, "
           f"{len(db.map_points)} map points, closures {edges} (loop stats "
           f"{dict(mapper.loop_closer.stats.totals)}); "
-          f"{len(globals_run) // 3} global BA(s) a session, none through "
+          f"{len(globals_run) // (2 + len(set(map(id, twins))))} global "
+          f"BA(s) a session, none through "
           f"the BA graphs; final keyframe {k} "
           f"camera-centre error {err:.6f} m vs odometry {odom_err:.6f} m; "
           f"K1 launches {launches} = {extractions} extractions + {quantized} "

@@ -20,7 +20,9 @@ ported: callers build the tensors directly, through pinned memory.
 package's jitted entry points: one program per padded bucket
 (:class:`BAGraphCache`, one CUDA graph a bucket on a card). Their op-by-op
 twins, ``solve_ba_eager`` and ``solve_ba_two_stage_eager``, are what the
-first call of a bucket runs.
+first call of a bucket runs, unless a larger held bucket covers it: then
+that bucket solves it, padded by the rule the problem builder pads by
+(``PADDING``, ``fill_padding``).
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ import threading
 import time
 from typing import Dict, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from slam_tpu_torch.ops import lie
@@ -68,6 +71,42 @@ class BAResult(NamedTuple):
     points: torch.Tensor
     obs_chi2: torch.Tensor     # (S, O) final unweighted chi2 per observation
     cost: torch.Tensor         # (S,) robust cost
+
+
+# The padding rule of a problem: each field's padded axis (the one after the
+# batch axis) and what a padded slot holds. Padded poses are fixed
+# identities, padded points fixed at the origin; padded observations, edges
+# and priors are invalid, index slot 0 and carry zero information, so they
+# add exact zeros to every sum. ``stage2_pose_fixed`` is the two-stage
+# solve's stage-2 mask over the poses. A field without an axis here is not
+# padded (``anchor_slot``, ``anchor_sqrt_info``).
+PADDING = dict(
+    poses=("K", "eye"), pose_fixed=("K", True),
+    points=("M", 0), points_fixed=("M", True),
+    obs_kf=("O", 0), obs_mp=("O", 0), obs_meas=("O", 0),
+    obs_sqrt_info=("O", 0), obs_valid=("O", False),
+    pe_a=("E", 0), pe_b=("E", 0), pe_meas=("E", "eye"),
+    pe_sqrt_info=("E", 0), pe_valid=("E", False),
+    pr_idx=("P", 0), pr_meas=("P", "eye"), pr_sqrt_info=("P", 0),
+    pr_valid=("P", False),
+    stage2_pose_fixed=("K", True))
+
+
+def fill_padding(t, field: str, start: int) -> None:
+    """Write what a padded slot of ``field`` holds into ``t[:, start:]``
+    (``t`` a batched tensor or NumPy array, its padded axis second): how
+    ``pipeline/bundle_adjustment._ProblemBuilder.build`` pads a problem, and
+    how a covering bucket (:class:`BAGraphCache`) pads a smaller one."""
+    tail = t[:, start:]
+    fill = PADDING[field][1]
+    if fill == "eye":
+        if isinstance(tail, torch.Tensor):
+            tail.zero_()
+            tail.diagonal(dim1=-2, dim2=-1).fill_(1)
+        else:
+            tail[...] = np.eye(tail.shape[-1], dtype=tail.dtype)
+    else:
+        tail[...] = fill
 
 
 def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -416,17 +455,54 @@ def _as_dtype(res: BAResult, dtype: torch.dtype) -> BAResult:
 
 
 class _Bucket:
-    """One entry's padded bucket: the sizes it is known by, its calls, its
-    fixed input buffers, and the graph with the outputs it writes (on the
-    CPU, the last eager run's outputs)."""
+    """One entry's padded bucket: its key, the sizes it is known by, its
+    calls, the smaller buckets' first calls it covered, its fixed input
+    buffers, and the graph with the outputs it writes (on the CPU, the
+    last eager run's outputs)."""
 
-    def __init__(self, dims: dict):
+    def __init__(self, key: tuple, dims: dict):
+        self.key = key
         self.dims = dims
-        self.calls = 0
+        self.calls = self.covers = 0
         self.inputs = None
         self.graph = None
         self.out: Optional[BAResult] = None
         self.capture_seconds: Optional[float] = None
+        self.size = sum(math.prod(shape) for shape, _ in key[3])
+
+
+# each entry's inputs, in order: the padding rule covers those it names
+ENTRY_FIELDS = {"solve_ba": BAProblem._fields,
+                "solve_ba_two_stage": BAProblem._fields + (
+                    "stage2_pose_fixed", "anchor_slot", "anchor_sqrt_info")}
+
+
+def _fits(b: _Bucket, key: tuple, fields) -> bool:
+    """Whether bucket ``b`` can hold a call keyed ``key``: the same entry,
+    device, stream, static arguments, dtypes and sizes, but for the padded
+    pose, point and observation axes, where it is at least as large."""
+    if b.key[:3] != key[:3] or b.key[4] != key[4]:
+        return False
+    for f, (shape, dt), (held, held_dt) in zip(fields, key[3], b.key[3]):
+        if dt != held_dt or len(shape) != len(held):
+            return False
+        grows = PADDING.get(f, (None,))[0] in ("K", "M", "O")
+        for d, (n, h) in enumerate(zip(shape, held)):
+            if h < n if (d == 1 and grows) else h != n:
+                return False
+    return True
+
+
+def pad_into(entry: str, held, tensors) -> None:
+    """Copy a call's ``tensors`` into the leading slices of a covering
+    bucket's buffers ``held`` and pad the rest (:func:`fill_padding`)."""
+    for f, d, s in zip(ENTRY_FIELDS[entry], held, tensors):
+        if d.shape == s.shape:
+            d.copy_(s, non_blocking=True)
+        else:
+            n = s.shape[1]
+            d[:, :n].copy_(s, non_blocking=True)
+            fill_padding(d, f, n)
 
 
 class BAGraphCache:
@@ -436,24 +512,44 @@ class BAGraphCache:
 
     A bucket is the entry, the device, the caller's current stream, every
     input's shape and dtype, and the static arguments (``iterations``,
-    ``cg_iters``, ``huber_delta``, ``init_lambda``). Its first call runs the
-    op-by-op twin on the caller's tensors. Every later call copies its
-    inputs into the bucket's fixed buffers and, on a card, replays the
-    bucket's CUDA graph on the caller's current stream; the second call
-    captures it first: one run of the twin on a side stream in the calling
-    thread (its cuBLAS and cuSOLVER handles and workspaces), then the
-    capture into the stream's private memory pool
+    ``cg_iters``, ``huber_delta``, ``init_lambda``). A call of a bucket
+    already held copies its inputs into the bucket's fixed buffers and, on
+    a card, replays the bucket's CUDA graph on the caller's current stream;
+    the bucket's second call captures it first: one run of the twin on a
+    side stream in the calling thread (its cuBLAS and cuSOLVER handles and
+    workspaces), then the capture into the stream's private memory pool
     (``capture_error_mode="thread_local"``, so that other threads' work and
-    waits go on). On the CPU the later calls run the twin eagerly on the
-    same buffers. The result is a copy of the bucket's outputs, which the
-    next call of the bucket overwrites. A per-device lock holds from the
-    input copy to that copy, so buffers and pool serve one call at a time.
-    A failed capture or replay raises; nothing carries on eagerly.
+    waits go on). On the CPU those calls run the twin eagerly on the same
+    buffers. The result is a copy of the bucket's outputs, which the next
+    call of the bucket overwrites. A per-device lock holds from the input
+    copy to that copy, so buffers and pool serve one call at a time. A
+    failed capture or replay raises; nothing carries on eagerly.
+
+    A bucket's first call is covered where it can be: among the held
+    buckets of its entry, device, stream, dtypes and static arguments, with
+    the same S, E and P, at least its K, M and O, and a graph (on the CPU,
+    buffers), the one with the fewest padded elements takes it. Its
+    tensors go into the leading slices of that bucket's buffers, the rest
+    is padded as ``_ProblemBuilder.build`` pads a problem
+    (:func:`pad_into`, :func:`fill_padding`), the bucket is replayed (on
+    the CPU, its twin run), and the result is cut back to the call's K, M
+    and O. The padded slots add exact zeros to the float64 LM, so the
+    solve is the call's own problem, rounded as the larger bucket's sums
+    and solves round it: bit-equal to its own bucket's solve on the CPU,
+    within float32 last bits on a card (``tests/test_torch_ba_cover.py``,
+    ``tests/test_torch_ba_card.py``). A first call that nothing covers runs
+    the op-by-op twin on its own tensors. Either way the call makes its
+    bucket, which its next call captures: a cover stands in for a shape's
+    first call only, so which buckets a process ends with does not depend
+    on the order it met them, and once a session's shapes all have their
+    buckets, its solves do not depend on what else the process holds.
+    ``last_served()`` names the bucket that solved the thread's last call.
 
     While ``utils/timer`` is on, the counters' increments go to the timer
-    too (``ba.eager``, ``ba.capture`` with its seconds, ``ba.replay``), and
-    CUDA timing events are recorded around each replay on the caller's
-    stream; whoever collects the result takes them
+    too (``ba.eager``, ``ba.capture`` with its seconds, ``ba.replay``,
+    ``ba.cover``), the copy and padding of a covered call is the span
+    ``ba.cover_pad``, and CUDA timing events are recorded around each
+    replay on the caller's stream; whoever collects the result takes them
     (``take_replay_events``) and reads the replay's device time once the
     result has arrived."""
 
@@ -469,10 +565,10 @@ class BAGraphCache:
     def reset_counts(self) -> None:
         """Zero the counters and every bucket's calls; graphs stay."""
         with self._lock:
-            self.eager_runs = self.captures = self.replays = 0
+            self.eager_runs = self.captures = self.replays = self.covers = 0
             self.capture_seconds = []
             for b in self._buckets.values():
-                b.calls = 0
+                b.calls = b.covers = 0
 
     def clear(self) -> None:
         """Drop every bucket, graph and pool."""
@@ -480,6 +576,13 @@ class BAGraphCache:
             self._buckets.clear()
             self._pools.clear()
         self.reset_counts()
+
+    def _cover(self, key: tuple, on_card: bool) -> Optional[_Bucket]:
+        """The smallest held bucket that can take a call keyed ``key``."""
+        fit = [b for b in self._buckets.values()
+               if (b.graph if on_card else b.inputs) is not None
+               and _fits(b, key, ENTRY_FIELDS[key[0]])]
+        return min(fit, key=lambda b: b.size, default=None)
 
     def run(self, entry: str, fn, tensors, device, **static) -> BAResult:
         """``fn(*tensors)`` (a ``BAResult``) as ``entry``'s program for
@@ -500,45 +603,64 @@ class BAGraphCache:
             first = b is None
             if first:
                 # the first 18 tensors are a BAProblem's fields
-                b = self._buckets[key] = _Bucket(dict(
+                b = self._buckets[key] = _Bucket(key, dict(
                     entry=entry, S=tensors[0].shape[0],
                     K=tensors[0].shape[1], M=tensors[2].shape[1],
                     O=tensors[4].shape[1], E=tensors[9].shape[1],
                     P=tensors[14].shape[1], **static))
+            b.calls += 1
+            into = self._cover(key, on_card) if first else b
+            covered = first and into is not None
+            if covered:
+                into.covers += 1
+                self.covers += 1
+                timer.count("ba.cover")
+            elif first:
                 self.eager_runs += 1
                 timer.count("ba.eager")
-            b.calls += 1
+            self._local.served = dict((into or b).dims, covered=covered)
             lock = self._device_locks.setdefault(device, threading.Lock())
-        if first:
+        if into is None:
             return fn(*(t.to(device, non_blocking=True) for t in tensors))
         with lock, (torch.cuda.device(device) if on_card
                     else contextlib.nullcontext()):
-            if b.inputs is None:
-                b.inputs = [torch.empty(t.shape, dtype=t.dtype, device=device)
-                            for t in tensors]
-            for d, s in zip(b.inputs, tensors):
-                d.copy_(s, non_blocking=True)
-            if not on_card:
-                b.out = fn(*b.inputs)
-                with self._lock:
-                    self.eager_runs += 1
-                timer.count("ba.eager")
+            if covered:
+                with timer.section("ba.cover_pad"):
+                    pad_into(entry, into.inputs, tensors)
             else:
-                if b.graph is None:
-                    self._capture(b, fn, device, stream)
+                if b.inputs is None:
+                    b.inputs = [torch.empty(t.shape, dtype=t.dtype,
+                                            device=device) for t in tensors]
+                for d, s in zip(b.inputs, tensors):
+                    d.copy_(s, non_blocking=True)
+            if not on_card:
+                into.out = fn(*into.inputs)
+                if not covered:
+                    with self._lock:
+                        self.eager_runs += 1
+                    timer.count("ba.eager")
+            else:
+                if into.graph is None:
+                    self._capture(into, fn, device, stream)
                 if timer.TIME_STATS is None:
-                    b.graph.replay()
+                    into.graph.replay()
                 else:
                     start, end = (torch.cuda.Event(enable_timing=True)
                                   for _ in range(2))
                     start.record()
-                    b.graph.replay()
+                    into.graph.replay()
                     end.record()
                     self._local.replay = (start, end)
-                with self._lock:
-                    self.replays += 1
-                timer.count("ba.replay")
-            return BAResult(*(t.clone() for t in b.out))
+                if not covered:
+                    with self._lock:
+                        self.replays += 1
+                    timer.count("ba.replay")
+            out = into.out
+            if covered:
+                k, m, o = (tensors[i].shape[1] for i in (0, 2, 4))
+                out = BAResult(out.poses[:, :k], out.points[:, :m],
+                               out.obs_chi2[:, :o], out.cost)
+            return BAResult(*(t.clone() for t in out))
 
     def take_replay_events(self) -> Optional[tuple]:
         """(start, end) CUDA events around this thread's last replay, if
@@ -547,6 +669,12 @@ class BAGraphCache:
         events = getattr(self._local, "replay", None)
         self._local.replay = None
         return events
+
+    def last_served(self) -> Optional[dict]:
+        """The sizes and static arguments of the bucket that solved this
+        thread's last call, ``covered`` True where that was a larger
+        bucket covering it (the sizes of the solve, padding included)."""
+        return getattr(self._local, "served", None)
 
     def _capture(self, b: _Bucket, fn, device: torch.device,
                  stream: int) -> None:
@@ -576,10 +704,12 @@ class BAGraphCache:
         timer.add("ba.capture", b.capture_seconds)
 
     def buckets(self) -> list:
-        """Each bucket's sizes, static arguments, calls, whether it has a
-        graph and its capture's seconds, in the order of first sighting."""
+        """Each bucket's sizes, static arguments, calls, the smaller
+        buckets' first calls it covered, whether it has a graph and its capture's seconds, in the
+        order of first sighting."""
         with self._lock:
-            return [dict(b.dims, calls=b.calls, graph=b.graph is not None,
+            return [dict(b.dims, calls=b.calls, covers=b.covers,
+                         graph=b.graph is not None,
                          capture_seconds=b.capture_seconds)
                     for b in self._buckets.values()]
 
@@ -594,12 +724,16 @@ class BAGraphCache:
                    if tuple(s["segment_pool_id"]) in pools)
 
     def counters(self) -> dict:
-        """Buckets seen, eager runs (first sightings; on the CPU every
-        call), captures, replays, seconds a capture (its warm-up run
-        included) and the pools' bytes."""
+        """Buckets seen, eager runs (first sightings that nothing covered;
+        on the CPU also every later call), captures, replays of a bucket's
+        own calls, covered first calls (replayed, on the CPU run, in a
+        larger bucket),
+        seconds a capture (its warm-up run included) and the pools'
+        bytes."""
         with self._lock:
             out = dict(buckets=len(self._buckets), eager_runs=self.eager_runs,
                        captures=self.captures, replays=self.replays,
+                       covers=self.covers,
                        capture_seconds=list(self.capture_seconds))
         out["pool_bytes"] = self.pool_bytes()
         return out

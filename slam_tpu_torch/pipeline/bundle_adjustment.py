@@ -12,14 +12,16 @@ Rebuild of the reference's three g2o solvers (reference: bundle_adjuster.cpp):
 
 Problems are padded with the JAX package's quanta (K 16, M 256, O 1024,
 E 32, P 1), because ``ops/ba.pick_cg_iters`` chooses the dense-Schur or the
-PCG solver from the padded sizes. Each solve runs on the device carried by
-the ``WorkspaceBA`` (or given to ``pose_bundle_adjust``/
-``global_bundle_adjust``): the problem goes over pinned host memory, the
-result comes back into pinned buffers behind the solve, and a CUDA event
-recorded after that copy is all a collector waits on. The local and pose
-BAs run as one program per padded bucket (``ops/ba.solve_ba_two_stage``,
-``solve_ba``: on a card a replayed CUDA graph, the problem copied from
-pinned memory straight into the bucket's buffers); the global BA runs op
+PCG solver from the padded sizes; what a padded slot holds is
+``ops/ba.PADDING``, the rule a covering bucket pads a smaller problem by.
+Each solve runs on the device carried by the ``WorkspaceBA`` (or given to
+``pose_bundle_adjust``/``global_bundle_adjust``): the problem goes over
+pinned host memory, the result comes back into pinned buffers behind the
+solve, and a CUDA event recorded after that copy is all a collector waits
+on. The local and pose BAs run as one program per padded bucket
+(``ops/ba.solve_ba_two_stage``, ``solve_ba``: on a card a replayed CUDA
+graph, the problem copied from pinned memory straight into the bucket's
+buffers, or into a larger bucket's that covers it); the global BA runs op
 by op (``ops/ba.solve_ba_eager``).
 """
 from __future__ import annotations
@@ -293,73 +295,50 @@ class _ProblemBuilder:
     # ------------------------------------------------------------------
 
     def build(self) -> ba.BAProblem:
+        """The problem as NumPy arrays padded to the quanta, each padded
+        slot as ``ops/ba.PADDING`` says (the rule a covering bucket pads
+        by); the solve entry points move them to the device."""
         # the reference's quanta: pick_cg_iters reads the padded sizes
-        K = _pad(len(self.kf_ids), 16)
-        M = _pad(len(self.mp_ids), 256)
-        O = _pad(self.n_obs, 1024)
-        E = _pad(len(self.pe), 32)
-        P = _pad(len(self.priors), 1)
+        size = dict(K=_pad(len(self.kf_ids), 16),
+                    M=_pad(len(self.mp_ids), 256), O=_pad(self.n_obs, 1024),
+                    E=_pad(len(self.pe), 32), P=_pad(len(self.priors), 1))
 
-        nk, nm = len(self.kf_ids), len(self.mp_ids)
-        poses = np.tile(np.eye(4, dtype=np.float32), (K, 1, 1))
-        pose_fixed = np.ones(K, bool)
-        if nk:
-            poses[:nk] = np.asarray(self.poses, np.float32)
-            pose_fixed[:nk] = self.pose_fixed
-        points = np.zeros((M, 3), np.float32)
-        points_fixed = np.ones(M, bool)
-        if nm:
-            points[:nm] = np.asarray(self.points, np.float32)
-            points_fixed[:nm] = self.points_fixed
+        def padded(field, rows, dtype, shape=()):
+            a = np.empty((size[ba.PADDING[field][0]],) + shape, dtype)
+            n = len(rows)
+            if n:
+                a[:n] = rows
+            ba.fill_padding(a[None], field, n)
+            return a
 
-        obs_kf = np.zeros(O, np.int32)
-        obs_mp = np.zeros(O, np.int32)
-        obs_meas = np.zeros((O, 2), np.float32)
-        obs_si = np.zeros(O, np.float32)
-        obs_valid = np.zeros(O, bool)
-        n = self.n_obs
-        if n:
-            obs_kf[:n] = np.repeat(
-                np.fromiter((c[0] for c in self.obs_chunks), np.int32,
-                            len(self.obs_chunks)),
-                [len(c[1]) for c in self.obs_chunks])
-            obs_mp[:n] = np.concatenate([c[1] for c in self.obs_chunks])
-            obs_meas[:n] = np.concatenate([c[2] for c in self.obs_chunks])
-            obs_si[:n] = np.concatenate([c[3] for c in self.obs_chunks])
-            obs_valid[:n] = True
-
-        pe_a = np.zeros(E, np.int32)
-        pe_b = np.zeros(E, np.int32)
-        pe_meas = np.tile(np.eye(4, dtype=np.float32), (E, 1, 1))
-        pe_si = np.zeros((E, 6, 6), np.float32)
-        pe_valid = np.zeros(E, bool)
-        for i, (a, b, C, S) in enumerate(self.pe):
-            pe_a[i] = a
-            pe_b[i] = b
-            pe_meas[i] = C.astype(np.float32)
-            pe_si[i] = S.astype(np.float32)
-            pe_valid[i] = True
-
-        pr_idx = np.zeros(P, np.int32)
-        pr_meas = np.tile(np.eye(4, dtype=np.float32), (P, 1, 1))
-        pr_si = np.zeros((P, 6, 6), np.float32)
-        pr_valid = np.zeros(P, bool)
-        for i, (k, T, S) in enumerate(self.priors):
-            pr_idx[i] = k
-            pr_meas[i] = T.astype(np.float32)
-            pr_si[i] = S.astype(np.float32)
-            pr_valid[i] = True
-
-        # NumPy arrays; the solve entry points move them to the device
+        chunks, n = self.obs_chunks, self.n_obs
+        obs = ([np.concatenate([c[i] for c in chunks]) for i in (1, 2, 3)]
+               if n else [()] * 3)
+        obs_kf = (np.repeat(np.fromiter((c[0] for c in chunks), np.int32,
+                                        len(chunks)),
+                            [len(c[1]) for c in chunks]) if n else ())
+        pe = list(zip(*self.pe)) or [()] * 4
+        pr = list(zip(*self.priors)) or [()] * 3
         return ba.BAProblem(
-            poses=poses, pose_fixed=pose_fixed,
-            points=points, points_fixed=points_fixed,
-            obs_kf=obs_kf, obs_mp=obs_mp,
-            obs_meas=obs_meas, obs_sqrt_info=obs_si, obs_valid=obs_valid,
-            pe_a=pe_a, pe_b=pe_b, pe_meas=pe_meas, pe_sqrt_info=pe_si,
-            pe_valid=pe_valid,
-            pr_idx=pr_idx, pr_meas=pr_meas, pr_sqrt_info=pr_si,
-            pr_valid=pr_valid)
+            poses=padded("poses", self.poses, np.float32, (4, 4)),
+            pose_fixed=padded("pose_fixed", self.pose_fixed, bool),
+            points=padded("points", self.points, np.float32, (3,)),
+            points_fixed=padded("points_fixed", self.points_fixed, bool),
+            obs_kf=padded("obs_kf", obs_kf, np.int32),
+            obs_mp=padded("obs_mp", obs[0], np.int32),
+            obs_meas=padded("obs_meas", obs[1], np.float32, (2,)),
+            obs_sqrt_info=padded("obs_sqrt_info", obs[2], np.float32),
+            obs_valid=padded("obs_valid", np.ones(n, bool), bool),
+            pe_a=padded("pe_a", pe[0], np.int32),
+            pe_b=padded("pe_b", pe[1], np.int32),
+            pe_meas=padded("pe_meas", pe[2], np.float32, (4, 4)),
+            pe_sqrt_info=padded("pe_sqrt_info", pe[3], np.float32, (6, 6)),
+            pe_valid=padded("pe_valid", np.ones(len(self.pe), bool), bool),
+            pr_idx=padded("pr_idx", pr[0], np.int32),
+            pr_meas=padded("pr_meas", pr[1], np.float32, (4, 4)),
+            pr_sqrt_info=padded("pr_sqrt_info", pr[2], np.float32, (6, 6)),
+            pr_valid=padded("pr_valid", np.ones(len(self.priors), bool),
+                            bool))
 
     def solve_async(self, iterations: int, pick=ba.pick_cg_iters,
                     eager: bool = False) -> _InFlight:
@@ -582,8 +561,9 @@ def local_bundle_adjust(keyframe: Keyframe, workspace: WorkspaceBA,
     with section("ba_build"):
         problem = builder.build()
         K, M = problem.poses.shape[0], problem.points.shape[0]
-        stage2_fixed = np.ones(K, bool)
-        stage2_fixed[:len(builder.kf_ids)] = False
+        stage2_fixed = np.zeros(K, bool)
+        ba.fill_padding(stage2_fixed[None], "stage2_pose_fixed",
+                        len(builder.kf_ids))
         dev = workspace.device
         args = (ba.BAProblem(*_staged(problem, dev)),
                 *_staged([stage2_fixed,

@@ -5,8 +5,11 @@ prior) solved with the PCG budget ``pick_cg_iters`` gives (96), poses and
 points within 1e-4 of the CPU's; and ``segment_sum`` of the normal blocks
 of a padded local-BA problem at the reference's quanta (K 16, M 256, O
 1024) bit-equal on the card and the CPU, so that a torch release that
-changes CUDA ``index_put_(accumulate=True)`` fails here. The card tests
-import no JAX, so they run on a machine without it:
+changes CUDA ``index_put_(accumulate=True)`` fails here; and a problem
+replayed at its first sight in a larger captured bucket that covers it
+(``BAGraphCache``'s cover) bit-equal to the twin at that bucket's sizes and within two float32
+ulps of its own bucket's replay, for both entries. The card
+tests import no JAX, so they run on a machine without it:
 
     python -m pytest tests/test_torch_ba_card.py --noconftest -m cuda
 
@@ -97,3 +100,54 @@ def test_segment_sum_on_the_card_is_bit_equal():
             ba_problem(*QUANTA, seed=1)).items():
         got = ba.segment_sum(values.cuda(), idx.cuda(), n).cpu()
         assert torch.equal(got, ba.segment_sum(values, idx, n)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["solve_ba", "solve_ba_two_stage"])
+def test_cover_replay_on_card(entry):
+    """A problem of the local BA's smallest bucket (K 16, M 256, O 1024,
+    built by ``_ProblemBuilder``) replayed at its first sight in a captured
+    larger bucket that covers it (``ops/ba.BAGraphCache``'s cover; larger
+    in M, in O, in K and in all three): bit-equal to the op-by-op twin on the problem padded to
+    that bucket's sizes, as every replay is to its twin; and within two
+    float32 ulps (of each output's largest magnitude) of the replay of its
+    own bucket. On the card the larger bucket's float64 reductions (the
+    Schur complement's contraction over M, the cost's sum over O, the
+    (6K, 6K) solve) may round otherwise than the smaller bucket's, and the
+    float32 results then part by a last bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import test_torch_ba_cover as cover
+
+    def on_card(args):
+        return tuple(_on(a, "cuda") if isinstance(a, ba.BAProblem)
+                     else a.cuda() for a in args)
+
+    args = on_card(cover.problem(entry, cover.SMALL, 1))
+    ulp = torch.finfo(torch.float32).eps
+    try:
+        ba.BA_GRAPHS.clear()
+        cover.call(entry, args)                  # sighting
+        own = cover.call(entry, args)            # capture and replay
+        assert ba.BA_GRAPHS.counters()["replays"] == 1
+        cover.equal(own, cover.call(entry, args, eager=True),
+                    "own replay against the eager twin")
+        for axes, sizes in sorted(cover.LARGER.items()):
+            ba.BA_GRAPHS.clear()
+            for seed in (100, 101):              # sighting, capture
+                cover.call(entry, on_card(cover.problem(entry, sizes,
+                                                        seed)))
+            covered = cover.call(entry, args)
+            b = ba.BA_GRAPHS.last_served()
+            c = ba.BA_GRAPHS.counters()
+            assert (c["buckets"], c["captures"], c["covers"]) == (2, 1, 1)
+            assert b["covered"] and b["K"] * b["M"] * b["O"] > 16 * 256 * 1024
+            twin = cover.call(entry, cover.grown(
+                entry, args, (b["K"], b["M"], b["O"])), eager=True)
+            cover.equal(covered, cover.cut(twin, covered),
+                        f"cover in {axes} against the twin at its sizes")
+            for f, x, y in zip(ba.BAResult._fields, covered, own):
+                gap = float((x - y).abs().max())
+                assert gap <= 2 * ulp * float(y.abs().max()), (axes, f, gap)
+    finally:
+        ba.BA_GRAPHS.clear()

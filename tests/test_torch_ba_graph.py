@@ -301,16 +301,25 @@ def test_replay_bit_equal_over_buckets_out_of_order_on_card(cache):
     """Three local-BA buckets (5 iterations a stage, dense Schur): each
     sighted, then captured, then replayed in another order on new
     problems; every replay bit-equal to the eager twin in poses, points,
-    chi2 and cost."""
+    chi2 and cost. The third bucket's first sight is covered by the first
+    bucket's graph (``BAGraphCache``'s cover), and equals the twin on its
+    problem padded to that bucket's sizes."""
     _need_card()
+    import test_torch_ba_cover as cover
+
     for i, bucket in enumerate(BUCKETS):
         for seed in (10 * i, 10 * i + 1):
-            got = ba.solve_ba_two_stage(*_card_problem(seed, bucket), 5, 0)
-            _equal(got, ba.solve_ba_two_stage_eager(
-                *_card_problem(seed, bucket), 5, 0), f"bucket {i} seed {seed}")
+            args = _card_problem(seed, bucket)
+            got = ba.solve_ba_two_stage(*args, 5, 0)
+            by = cache.last_served()
+            assert by["covered"] == (i == 2 and seed == 20), (i, seed, by)
+            want = ba.solve_ba_two_stage_eager(*cover.grown(
+                "solve_ba_two_stage", args, (by["K"], by["M"], by["O"])),
+                5, 0)
+            _equal(got, cover.cut(want, got), f"bucket {i} seed {seed}")
     c = cache.counters()
-    assert (c["buckets"], c["eager_runs"], c["captures"], c["replays"]) \
-        == (3, 3, 3, 3), c
+    assert (c["buckets"], c["eager_runs"], c["captures"], c["replays"],
+            c["covers"]) == (3, 2, 3, 3, 1), c
     assert c["pool_bytes"] > 0
     for i in (2, 0, 1, 0):
         args = _card_problem(100 + i, BUCKETS[i])
