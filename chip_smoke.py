@@ -2,12 +2,15 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernel from ``slam_tpu_torch/csrc`` and the
+Builds the hand-written CUDA kernels from ``slam_tpu_torch/csrc`` and the
 tensor-core rate probe ``tools/mma_peak.cu`` (one nvcc each, in parallel),
-measures the card's 1-bit mma rate, checks the kernel bit for bit against
+measures the card's 1-bit mma rate, checks K1 bit for bit against
 its plain PyTorch version on the card (at the main path's shape, the
 vocabulary's and ragged edge shapes, one launch per call) and times it
-beside its bound, drives the port's main path at the device-SLAM bench's
+beside its bound; checks the GFTT detection kernel bit for bit against its
+plain version at every level of the fleet's and both live cells'
+geometries, times both beside its bound and counts the chunk graph's nodes
+with either; drives the port's main path at the device-SLAM bench's
 settings twice: ``slam_tpu_torch.pipeline.device_vo.BatchedDeviceVO`` over
 64 frames of exact odometry (each chunk a replay of its captured CUDA
 graph), the same frames again with every chunk's outputs, snapshot rows
@@ -135,6 +138,32 @@ def cuda_time_ms(fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps
 
 
+def _launches_reset():
+    """Zero the hand-written kernels' launch counts (``kernels/launches``)
+    and the device quantizations; returns the extraction graphs' captures
+    so far, for :func:`_gftt_per_extraction`."""
+    from slam_tpu_torch.kernels import launches
+    from slam_tpu_torch.ops import bow
+    from slam_tpu_torch.ops.frontend import EXTRACT_GRAPHS
+
+    torch.cuda.synchronize()
+    launches.reset()
+    bow.quantize.device_calls = 0
+    return EXTRACT_GRAPHS.captures
+
+
+def _gftt_per_extraction(extractions, captures0):
+    """GFTT's launches since :func:`_launches_reset`, held equal to the
+    extractions plus the extraction graphs captured since: a capture runs
+    the extraction once on a side stream before it records it."""
+    from slam_tpu_torch.kernels import launches
+    from slam_tpu_torch.ops.frontend import EXTRACT_GRAPHS
+
+    n, captured = launches.GFTT.total, EXTRACT_GRAPHS.captures - captures0
+    assert n == extractions + captured > 0, (n, extractions, captured)
+    return n
+
+
 def phase_device():
     from slam_tpu_torch.precision import pin_full_f32
 
@@ -177,7 +206,8 @@ def build_kernels():
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor() as pool:
-        list(pool.map(load_library, ["hamming_argmin.cu", str(PEAK_SOURCE)]))
+        list(pool.map(load_library, ["hamming_argmin.cu", "gftt_peaks.cu",
+                                     str(PEAK_SOURCE)]))
     print(f"kernels built in {time.perf_counter() - t0:.1f} s")
 
 
@@ -262,6 +292,7 @@ def phase_kernel(smi, peaks):
     ragged edge shapes. Every codebook row 64k repeats row 64k - 1, so the
     first index must win across every cluster rank's first row (ranks
     split V into whole tiles of 64 rows)."""
+    from slam_tpu_torch.kernels import launches
     from slam_tpu_torch.ops.bow import make_codebook
     from slam_tpu_torch.ops.hamming_argmin import (hamming_argmin,
                                                    hamming_argmin_plain)
@@ -297,9 +328,9 @@ def phase_kernel(smi, peaks):
         first = [np.flatnonzero((cb == cb[j]).all(1))[0] for j in tied]
         d = torch.from_numpy(desc.view(np.int32)).cuda()
         c = torch.from_numpy(np.ascontiguousarray(cb).view(np.int32)).cuda()
-        before = hamming_argmin.launches
+        before = launches.K1.total
         kd, ki = hamming_argmin(d, c)
-        assert hamming_argmin.launches == before + 1
+        assert launches.K1.total == before + 1
         pd, pi = hamming_argmin_plain(d, c)
         torch.cuda.synchronize()
         err = max(int((kd - pd).abs().max()), int((ki - pi).abs().max()))
@@ -367,7 +398,7 @@ def make_inputs():
 
 
 def phase_main_path(cam, worlds, images, deltas):
-    from slam_tpu_torch.ops.hamming_argmin import hamming_argmin
+    from slam_tpu_torch.kernels import launches
     from slam_tpu_torch.pipeline.device_vo import (BatchedDeviceVO,
                                                    DeviceVOConfig)
 
@@ -390,13 +421,12 @@ def phase_main_path(cam, worlds, images, deltas):
     vo = fresh()
     run(vo, 2)
     vo.reset(p0)
-    torch.cuda.synchronize()
-    hamming_argmin.launches = 0
+    _launches_reset()
     t0 = time.perf_counter()
     outs = run(vo, FRAMES // CHUNK)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = hamming_argmin.launches
+    k1, gftt = launches.K1.total, launches.GFTT.total
 
     cat = lambda k: np.concatenate([getattr(o, k).cpu().numpy() for o in outs],
                                    axis=1)
@@ -434,10 +464,10 @@ def phase_main_path(cam, worlds, images, deltas):
     print(f"revisits flagged: {int(flagged.sum())} frames; best unflagged "
           f"second-lap score {top.max():.4f} (gate {cfg.loop_min_score})")
 
-    # K1 ran once per frame for all S sequences
-    assert launches == FRAMES, launches
+    # K1 and GFTT ran once per frame for all S sequences
+    assert k1 == gftt == FRAMES, (k1, gftt)
     fps = S * FRAMES / wall
-    return dict(wall=wall, fps=fps, launches=launches)
+    return dict(wall=wall, fps=fps, launches=k1, gftt_launches=gftt)
 
 
 def device_activity(prof):
@@ -475,7 +505,7 @@ def phase_chunk_graph(cam, worlds, images, deltas, smi):
     busy share of the unprofiled replayed wall."""
     from torch.profiler import ProfilerActivity, profile
 
-    from slam_tpu_torch.ops.hamming_argmin import hamming_argmin
+    from slam_tpu_torch.kernels import launches
     from slam_tpu_torch.pipeline.device_vo import (BatchedDeviceVO,
                                                    DeviceVOConfig)
 
@@ -519,9 +549,12 @@ def phase_chunk_graph(cam, worlds, images, deltas, smi):
     # every chunk a replay: the same instance from the start
     graph.reset(p0)
     torch.cuda.reset_peak_memory_stats()
-    hamming_argmin.launches = 0
+    _launches_reset()
     replay_s = [timed(lambda: graph.advance(*chunk(c)))[1] for c in range(n)]
-    assert hamming_argmin.launches == FRAMES, hamming_argmin.launches
+    # one launch of each a frame step, counted at capture and added per
+    # replay
+    assert launches.K1.total == launches.GFTT.total == FRAMES, (
+        launches.K1.total, launches.GFTT.total)
     replay_peak = torch.cuda.max_memory_allocated()
     reserved = torch.cuda.memory_reserved()
     torch.cuda.reset_peak_memory_stats()
@@ -589,7 +622,7 @@ def phase_device_slam(cam, worlds, images, deltas, smi):
     closures and the trajectory against ground truth and the control, and
     times the host consumer and the rebase."""
     from slam_tpu_torch import DeviceSlam, DeviceSlamParams
-    from slam_tpu_torch.ops.hamming_argmin import hamming_argmin
+    from slam_tpu_torch.kernels import launches
     from slam_tpu_torch.pipeline.device_vo import (BatchedDeviceVO,
                                                    DeviceVOConfig,
                                                    _rebase_states)
@@ -612,8 +645,7 @@ def phase_device_slam(cam, worlds, images, deltas, smi):
                 _log.append(time.perf_counter() - t0)
                 return out
             setattr(slam, "_" + name, timed)
-        torch.cuda.synchronize()
-        hamming_argmin.launches = 0
+        _launches_reset()
         t0 = time.perf_counter()
         for c in range(SLAM_FRAMES // CHUNK):
             sl = slice(c * CHUNK, (c + 1) * CHUNK)
@@ -621,11 +653,11 @@ def phase_device_slam(cam, worlds, images, deltas, smi):
         slam.finish()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        return slam, wall, hamming_argmin.launches, times
+        return slam, wall, (launches.K1.total, launches.GFTT.total), times
 
     session(True)                             # warm-up: CUDA init, caches
-    slam, wall, launches, times = session(True)
-    control, control_wall, control_launches, _ = session(False)
+    slam, wall, counts, times = session(True)
+    control, control_wall, control_counts, _ = session(False)
     # the same frames through the VO backend alone, for the closure loop's
     # share of the wall
     vo = BatchedDeviceVO(cfg, batch=S, camera=cam)
@@ -638,9 +670,9 @@ def phase_device_slam(cam, worlds, images, deltas, smi):
     torch.cuda.synchronize()
     vo_wall = time.perf_counter() - t0
 
-    # K1 ran once per frame for all S sequences, in both sessions
-    assert launches == control_launches == SLAM_FRAMES, (launches,
-                                                         control_launches)
+    # K1 and GFTT ran once per frame for all S sequences, in both sessions
+    assert counts == control_counts == (SLAM_FRAMES, SLAM_FRAMES), (
+        counts, control_counts)
     accepted = [e for e in slam.closures if e.accepted]
     reasons = {}
     for e in slam.closures:
@@ -733,7 +765,8 @@ def phase_device_slam(cam, worlds, images, deltas, smi):
           f"ms between CUDA events, {enqueue_ms:.3f} ms of host enqueue; "
           f"{merged} duplicates merged, equal to the CPU's (floats within "
           f"{float_err:.2e}); on {smi}")
-    return dict(wall=wall, fps=fps, launches=launches, accepted=len(accepted),
+    return dict(wall=wall, fps=fps, launches=counts[0],
+                gftt_launches=counts[1], accepted=len(accepted),
                 consume_ms_per_chunk=consume_ms.sum() / n_chunks,
                 rebase_ms=rebase_ms)
 
@@ -833,7 +866,7 @@ def phase_interactive(cam, world, frames, odom, smi):
     from slam_tpu_torch.map.keyframe import MapperInput, Pose
     from slam_tpu_torch.ops import ba, bow
     from slam_tpu_torch.ops.frontend import OrbExtractor
-    from slam_tpu_torch.ops.hamming_argmin import hamming_argmin
+    from slam_tpu_torch.kernels import launches
     from slam_tpu_torch.params import Parameters, ParametersSlam
     from slam_tpu_torch.pipeline import mapper_helpers
     from slam_tpu_torch.pipeline.mapper_helpers import check_consistency
@@ -920,11 +953,13 @@ def phase_interactive(cam, world, frames, odom, smi):
         warm_plan, plan = plan, {}
         stats = timer.enable_timing()
         cache.reset_counts()
-        hamming_argmin.launches = 0
-        bow.quantize.device_calls = 0
+        captures0 = _launches_reset()
         slam, wall = session()
-        launches = hamming_argmin.launches
+        k1 = launches.K1.total
         quantized = bow.quantize.device_calls
+        # before the eager twins' sessions launch more
+        gftt = _gftt_per_extraction(slam.mapper._orb_extractor.extractions,
+                                    captures0)
         timed_counts = cache.counters()
         timed_plan = plan
         timer.disable_timing()
@@ -962,8 +997,7 @@ def phase_interactive(cam, world, frames, odom, smi):
     db = mapper.map_db
     check_consistency(db)
     extractions = mapper._orb_extractor.extractions
-    assert launches == extractions + quantized > 0, (launches, extractions,
-                                                     quantized)
+    assert k1 == extractions + quantized > 0, (k1, extractions, quantized)
     centre = lambda T: -T[:3, :3].T @ T[:3, 3]
     final = db.latest_keyframe()
     k = int(final.id)
@@ -986,8 +1020,8 @@ def phase_interactive(cam, world, frames, odom, smi):
           f"BA(s) a session, none through "
           f"the BA graphs; final keyframe {k} "
           f"camera-centre error {err:.6f} m vs odometry {odom_err:.6f} m; "
-          f"K1 launches {launches} = {extractions} extractions + {quantized} "
-          f"device quantizations; on {smi}")
+          f"K1 launches {k1} = {extractions} extractions + {quantized} "
+          f"device quantizations; GFTT launches {gftt}; on {smi}")
     print(f"BA graph cache: warm-up {_cache_text(warm_counts)}; timed "
           f"{_cache_text(timed_counts)}; on {smi}")
     print("BA buckets of the warm-up session (entry, K, M, O, E, P, "
@@ -1014,7 +1048,8 @@ def phase_interactive(cam, world, frames, odom, smi):
     assert (res["cpu"].words[same] == res["cuda"].words[same]).all()
     print(f"OrbExtractor CPU vs card, frame 0: {same.mean():.4%} of slots "
           f"with equal descriptors, their words all equal")
-    return dict(wall=wall, fps=fps, launches=launches, edges=edges, err=err,
+    return dict(wall=wall, fps=fps, launches=k1, gftt_launches=gftt,
+                edges=edges, err=err,
                 odom_err=odom_err, problems=list(problems.values()),
                 histogram=histogram)
 
@@ -1172,7 +1207,7 @@ def phase_tracker(frames, smi):
     first frames: tracks persist, ids are unique and fresh ids monotonic,
     and K1 ran once per extraction."""
     from slam_tpu_torch.frontends.descriptor_tracker import DescriptorTracker
-    from slam_tpu_torch.ops.hamming_argmin import hamming_argmin
+    from slam_tpu_torch.kernels import launches
     from slam_tpu_torch.params import Parameters, ParametersSlam, \
         StaticSettings
 
@@ -1181,12 +1216,11 @@ def phase_tracker(frames, smi):
     for f in frames[:2]:
         warm.process(f)
     tracker = DescriptorTracker(settings, WIDTH, HEIGHT, device="cuda")
-    torch.cuda.synchronize()
-    hamming_argmin.launches = 0
+    captures0 = _launches_reset()
     t0 = time.perf_counter()
     out = [tracker.process(f) for f in frames[:TRACKER_FRAMES]]
     wall = time.perf_counter() - t0
-    launches = hamming_argmin.launches
+    k1 = launches.K1.total
     seen, carried = set(), []
     for prev, cur in zip(out, out[1:]):
         carried.append(len(set(prev.tracked_id_list.tolist())
@@ -1202,14 +1236,16 @@ def phase_tracker(frames, smi):
     assert min(carried[:side - 1]) > 15, carried
     assert tracker._next_id == max(seen) + 1
     extractions = tracker.extractor.extractions
-    assert launches == extractions == TRACKER_FRAMES, (launches, extractions)
+    assert k1 == extractions == TRACKER_FRAMES, (k1, extractions)
+    gftt = _gftt_per_extraction(extractions, captures0)
     print(f"DescriptorTracker: {TRACKER_FRAMES} frames at {WIDTH}x{HEIGHT} "
           f"in {wall:.3f} s = {wall / TRACKER_FRAMES * 1e3:.2f} ms a frame; "
           f"{len(out[0].tracked_id_list)} tracks on frame 0, carried "
           f"{min(carried[:side - 1])}-{max(carried)} a frame, {len(seen)} "
-          f"ids; K1 launches {launches} = {extractions} extractions; "
-          f"on {smi}")
-    return dict(launches=launches, ms_per_frame=wall / TRACKER_FRAMES * 1e3)
+          f"ids; K1 launches {k1} = {extractions} extractions; GFTT "
+          f"launches {gftt}; on {smi}")
+    return dict(launches=k1, gftt_launches=gftt,
+                ms_per_frame=wall / TRACKER_FRAMES * 1e3)
 
 
 def make_session_inputs():
@@ -1244,7 +1280,7 @@ def phase_sessions(seqs, smi):
     frames. Every map passes the audit, and K1 ran once per extraction and
     device quantization of every session."""
     from slam_tpu_torch.ops import ba, bow
-    from slam_tpu_torch.ops.hamming_argmin import hamming_argmin
+    from slam_tpu_torch.kernels import launches
     from slam_tpu_torch.parallel.batch import map_sequences
     from slam_tpu_torch.params import Parameters, ParametersSlam
     from slam_tpu_torch.pipeline.mapper_helpers import check_consistency
@@ -1252,9 +1288,7 @@ def phase_sessions(seqs, smi):
     params = Parameters(slam=ParametersSlam(**IA_PARAMS))
 
     def run(sequences):
-        torch.cuda.synchronize()
-        hamming_argmin.launches = 0
-        bow.quantize.device_calls = 0
+        captures0 = _launches_reset()
         t0 = time.perf_counter()
         mappers = map_sequences(sequences, params,
                                 n_workers=len(sequences), device="cuda")
@@ -1263,13 +1297,13 @@ def phase_sessions(seqs, smi):
         for m in mappers:
             check_consistency(m.map_db)
         extractions = sum(m._orb_extractor.extractions for m in mappers)
-        launches, quantized = (hamming_argmin.launches,
-                               bow.quantize.device_calls)
-        assert launches == extractions + quantized > 0, (
-            launches, extractions, quantized)
-        return mappers, wall, launches
+        k1, quantized = launches.K1.total, bow.quantize.device_calls
+        assert k1 == extractions + quantized > 0, (k1, extractions,
+                                                   quantized)
+        gftt = _gftt_per_extraction(extractions, captures0)
+        return mappers, wall, (k1, gftt)
     ba.BA_GRAPHS.reset_counts()
-    mappers, wall, launches = run(seqs)
+    mappers, wall, (k1, gftt) = run(seqs)
     shared = ba.BA_GRAPHS.counters()
     _, alone_wall, _ = run(seqs[:1])
     agg = SESSIONS * SESSION_FRAMES / wall
@@ -1278,10 +1312,11 @@ def phase_sessions(seqs, smi):
     print(f"concurrent sessions: {SESSIONS} x {SESSION_FRAMES} frames at "
           f"{WIDTH}x{HEIGHT} in {wall:.3f} s = {agg:.2f} frames/s aggregate; "
           f"one session alone {alone:.2f} frames/s ({agg / alone:.2f}x); "
-          f"keyframes {kfs}; every map consistent; K1 launches {launches} = "
-          f"extractions + device quantizations; BA graph cache over the "
-          f"concurrent run: {_cache_text(shared)}; on {smi}")
-    return dict(launches=launches, fps=agg, alone_fps=alone)
+          f"keyframes {kfs}; every map consistent; K1 launches {k1} = "
+          f"extractions + device quantizations; GFTT launches {gftt} = "
+          f"extractions + extraction graph captures; BA graph cache over "
+          f"the concurrent run: {_cache_text(shared)}; on {smi}")
+    return dict(launches=k1, gftt_launches=gftt, fps=agg, alone_fps=alone)
 
 
 def phase_mesh(cam, worlds, images, deltas, smi):
@@ -1390,27 +1425,19 @@ def _tool(name):
     return importlib.import_module(name)
 
 
-def _k1_counts_reset():
+def _k1_counts(extractors, captures0):
+    """K1's and GFTT's launches since ``_launches_reset``: K1 held equal to
+    the extractions of ``extractors`` plus the device quantizations, GFTT
+    as :func:`_gftt_per_extraction` says."""
+    from slam_tpu_torch.kernels import launches
     from slam_tpu_torch.ops import bow
-    from slam_tpu_torch.ops.hamming_argmin import hamming_argmin
 
-    torch.cuda.synchronize()
-    hamming_argmin.launches = 0
-    bow.quantize.device_calls = 0
-
-
-def _k1_counts(extractors):
-    """K1's launches since ``_k1_counts_reset``, held equal to the
-    extractions of ``extractors`` plus the device quantizations."""
-    from slam_tpu_torch.ops import bow
-    from slam_tpu_torch.ops.hamming_argmin import hamming_argmin
-
-    launches = hamming_argmin.launches
+    k1 = launches.K1.total
     extractions = sum(ex.extractions for ex in extractors)
     quantized = bow.quantize.device_calls
-    assert launches == extractions + quantized > 0, (launches, extractions,
-                                                     quantized)
-    return launches, extractions, quantized
+    assert k1 == extractions + quantized > 0, (k1, extractions, quantized)
+    return k1, extractions, quantized, _gftt_per_extraction(extractions,
+                                                            captures0)
 
 
 def phase_euroc_synthetic(smi):
@@ -1422,7 +1449,7 @@ def phase_euroc_synthetic(smi):
     from slam_tpu_torch.pipeline.mapper_helpers import check_consistency
 
     tool = _tool("torch_run_euroc_synthetic")
-    _k1_counts_reset()
+    captures0 = _launches_reset()
     t0 = time.perf_counter()
     res, mapper, tracker = tool.drive(
         n_frames=EUROC_FRAMES, drift=EUROC_DRIFT, seed=0, progress=False,
@@ -1430,8 +1457,8 @@ def phase_euroc_synthetic(smi):
         device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, extractions, quantized = _k1_counts(
-        [tracker.extractor, mapper._orb_extractor])
+    launches, extractions, quantized, gftt = _k1_counts(
+        [tracker.extractor, mapper._orb_extractor], captures0)
     check_consistency(mapper.map_db)
     print(f"EuRoC-class room, {res['frames']} frames at 752x480, sigma "
           f"{EUROC_DRIFT}: {res['keyframes']} keyframes, {res['map_points']} "
@@ -1440,32 +1467,36 @@ def phase_euroc_synthetic(smi):
           f"m; render {res['render_ms']:.1f}, track {res['track_ms']:.1f}, "
           f"mapper {res['mapper_ms']:.1f} ms a frame; wall {wall:.1f} s; "
           f"K1 launches {launches} = {extractions} extractions + "
-          f"{quantized} device quantizations; map consistent; on {smi}")
+          f"{quantized} device quantizations; GFTT launches {gftt}; map "
+          f"consistent; on {smi}")
     assert res["loop_closures"] >= 1, res
     assert res["ate_slam_m"] < res["ate_odometry_m"], res
-    return dict(res, wall=wall, launches=launches)
+    return dict(res, wall=wall, launches=launches, gftt_launches=gftt)
 
 
 def phase_device_vo_room(smi):
     """``tools/torch_run_device_vo_euroc.py``'s run on the card: two
     sequences of 120 room frames at sigma 0.008 through ``BatchedDeviceVO``
-    with the window BA; its ATE below the odometry's."""
-    from slam_tpu_torch.ops.hamming_argmin import hamming_argmin
+    with the window BA; its ATE below the odometry's, and GFTT launched
+    once a frame step: the tool's warm-up chunk and the timed run."""
+    from slam_tpu_torch.kernels import launches
 
     tool = _tool("torch_run_device_vo_euroc")
-    _k1_counts_reset()
+    _launches_reset()
     res = tool.run(n_frames=DVO_FRAMES, n_sequences=DVO_SEQS,
-                   drift=DVO_DRIFT, window=DVO_WINDOW, progress=False,
-                   device="cuda")
-    launches = hamming_argmin.launches       # no retrieval: loop_every 0
+                   drift=DVO_DRIFT, window=DVO_WINDOW, chunk=CHUNK,
+                   progress=False, device="cuda")
+    k1 = launches.K1.total                   # no retrieval: loop_every 0
+    gftt = launches.GFTT.total
+    assert gftt == CHUNK + DVO_FRAMES // CHUNK * CHUNK, gftt
     print(f"device VO on the room, {DVO_SEQS} x {res['frames']} frames at "
           f"752x480, sigma {DVO_DRIFT}, window {DVO_WINDOW}: ATE "
           f"{res['ate_vo_m_mean']:.6f} m vs odometry "
           f"{res['ate_odometry_m_mean']:.6f} m (per sequence "
           f"{res['per_sequence']}); {res['vo_keyframes_per_sec']:.2f} "
-          f"keyframes/s; K1 launches {launches}; on {smi}")
+          f"keyframes/s; K1 launches {k1}; GFTT launches {gftt}; on {smi}")
     assert res["ate_vo_m_mean"] < res["ate_odometry_m_mean"], res
-    return dict(res, launches=launches)
+    return dict(res, launches=k1, gftt_launches=gftt)
 
 
 def phase_kitti_relocation(smi):
@@ -1484,7 +1515,7 @@ def phase_kitti_relocation(smi):
     _, poses = tool.make_sequence(KITTI_FRAMES, radius=KITTI_RADIUS)
     truth = np.array([-T[:3, :3].T @ T[:3, 3] for T in poses])
     errs = {}
-    _k1_counts_reset()
+    captures0 = _launches_reset()
     t0 = time.perf_counter()
     untrack = proxy.track_errors(Mapper, truth, tool.FPS, errs)
     try:
@@ -1503,8 +1534,9 @@ def phase_kitti_relocation(smi):
     first = frames <= 99
     scale_99 = proxy.sim3_scale(c[first], truth[frames[first]])
     scale_all = proxy.sim3_scale(c, truth[frames])
-    launches, extractions, quantized = _k1_counts(
-        [ex for m, t in sessions for ex in (t.extractor, m._orb_extractor)])
+    launches, extractions, quantized, gftt = _k1_counts(
+        [ex for m, t in sessions for ex in (t.extractor, m._orb_extractor)],
+        captures0)
     reloc = res["relocation"]
     print(f"KITTI-class street, {KITTI_FRAMES} frames at 1241x376 (radius "
           f"{KITTI_RADIUS} m, heading bias {KITTI_DRIFT_YAW}): "
@@ -1514,7 +1546,7 @@ def phase_kitti_relocation(smi):
           f"{res['ate_odometry_m']:.6f} m; loop stats {res['loop_stats']}; "
           f"relocation {reloc}; wall {wall:.1f} s; K1 launches {launches} = "
           f"{extractions} extractions + {quantized} device quantizations; "
-          f"on {smi}")
+          f"GFTT launches {gftt}; on {smi}")
     print(f"street drift proxy: at frame 99 the newest keyframe is off by "
           f"{errs['kf_err_99']:.6f} m against the odometry's "
           f"{errs['odo_err_99']:.6f} m; "
@@ -1525,7 +1557,8 @@ def phase_kitti_relocation(smi):
     assert res["ate_slam_m"] < res["ate_odometry_m"], res
     assert reloc["atlas_keyframes"] == res["keyframes"], reloc
     assert reloc["stages"].get("RELOCATION_MAP_POINT_RANSAC", 0) >= 1, reloc
-    return dict(res, wall=wall, launches=launches, scale_0_99=scale_99,
+    return dict(res, wall=wall, launches=launches, gftt_launches=gftt,
+                scale_0_99=scale_99,
                 scale_all=scale_all, kf_err_99=errs["kf_err_99"],
                 odo_err_99=errs["odo_err_99"])
 
@@ -1562,6 +1595,216 @@ def phase_frontend(images):
     assert share >= 0.99, share
 
 
+def _graph_nodes(graph) -> int:
+    """Nodes of a ``CUDAGraph(keep_graph=True)``'s graph (the driver's
+    ``cuGraphGetNodes``)."""
+    import ctypes
+
+    fn = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.POINTER(ctypes.c_size_t)]
+    fn.restype = ctypes.c_int
+    n = ctypes.c_size_t(0)
+    err = fn(graph.raw_cuda_graph(), None, ctypes.byref(n))
+    assert err == 0, f"cuGraphGetNodes: CUresult {err}"
+    return n.value
+
+
+def _chunk_graph_nodes(detect, w, h, seqs):
+    """Nodes of the chunk graph of ``seqs`` sequences at ``w`` x ``h``
+    (the main path's settings otherwise), chunks of 8, with the GFTT
+    detection ``detect`` in place of ``ops/detector.gftt_peaks``."""
+    from slam_tpu_torch.ops import detector as det
+    from slam_tpu_torch.pipeline.device_vo import (BatchedDeviceVO,
+                                                   DeviceVOConfig)
+    from slam_tpu_torch.utils.synthetic import default_camera
+
+    cam = default_camera(w, h)
+    vo = BatchedDeviceVO(DeviceVOConfig(**dict(CFG, width=w, height=h)),
+                         batch=seqs, camera=cam, device="cuda")
+    vo.reset(np.tile(np.eye(4, dtype=np.float32), (seqs, 1, 1)))
+    images = np.random.default_rng(5).integers(
+        0, 256, (seqs, CHUNK, h, w)).astype(np.uint8)
+    odom = np.tile(np.eye(4, dtype=np.float32), (seqs, CHUNK, 1, 1))
+    kept, graph_cls = det.gftt_peaks, torch.cuda.CUDAGraph
+    det.gftt_peaks = detect
+    torch.cuda.CUDAGraph = lambda: graph_cls(keep_graph=True)
+    try:
+        vo.advance(images, odom)                   # eager
+        vo.advance(images, odom)                   # captured, then replayed
+    finally:
+        det.gftt_peaks, torch.cuda.CUDAGraph = kept, graph_cls
+    torch.cuda.synchronize()
+    (shape,) = vo._chunks[0]._shapes.values()
+    return _graph_nodes(shape.graph)
+
+
+def graph_ms(fn, reps=20, warmup=3):
+    """Device ms of ``fn()``: CUDA events around one replay of a CUDA graph
+    that holds ``reps`` calls, after ``warmup`` eager calls, so that host
+    launches do not count. The kernels' launch counts take the capture's
+    launches back out and add each replay's."""
+    from slam_tpu_torch.kernels import launches
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with launches.capture() as recorded, torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    launches.replay(recorded)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    g.replay()
+    end.record()
+    launches.replay(recorded)
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _frontend_split(images):
+    """Device ms of one front-end step on (S, H, W) uint8 card ``images``
+    at the main path's settings, by part: the pyramid, GFTT detection (the
+    kernel, and the plain version it replaced), the budget sort, ORB
+    angles and descriptors (tracked slots and every level), the whole
+    ``extract`` with the kernel and with the plain detection; each a graph
+    replay."""
+    from slam_tpu_torch.ops import detector as det
+    from slam_tpu_torch.ops import orb
+    from slam_tpu_torch.ops.frontend import _operators, extract
+    from slam_tpu_torch.ops.pyramid import build_pyramid
+    from slam_tpu_torch.pipeline.device_vo import (N_TRACKED, DeviceVOConfig,
+                                                   _frontend_spec,
+                                                   _resolve_settings)
+
+    seqs, h, w = images.shape
+    cfg = DeviceVOConfig(**dict(CFG, width=w, height=h))
+    spec = _frontend_spec(_resolve_settings(cfg, None), w, h)
+    _, rs, bs = _operators(spec, images.device)
+    x = images.float()
+    levels, blurred = build_pyramid(x, rs, bs)
+    lvls = [lvl for lvl, b in enumerate(spec.budgets) if b > 0]
+    mds = [spec.min_dists[lvl] for lvl in lvls]
+    maps = det.gftt_peaks([levels[lvl] for lvl in lvls], mds)
+    picks = [det.take_best(m, spec.budgets[lvl])[0]
+             for lvl, m in zip(lvls, maps)]
+    txy = torch.zeros(seqs, N_TRACKED, 2, device=images.device)
+    tv = torch.zeros(seqs, N_TRACKED, dtype=torch.bool, device=images.device)
+    lk = spec.lk_level
+
+    def orb_all():
+        orb.compute_orb(levels[lk], blurred[lk], txy)
+        for lvl, xy in zip(lvls, picks):
+            orb.compute_orb(levels[lvl], blurred[lvl], xy)
+
+    def extract_plain():
+        kept, det.gftt_peaks = det.gftt_peaks, det.gftt_peaks_plain
+        try:
+            extract(images, txy, tv, spec)
+        finally:
+            det.gftt_peaks = kept
+
+    parts = dict(
+        pyramid=lambda: build_pyramid(x, rs, bs),
+        detect=lambda: det.gftt_peaks([levels[lvl] for lvl in lvls], mds),
+        detect_plain=lambda: det.gftt_peaks_plain(
+            [levels[lvl] for lvl in lvls], mds),
+        select=lambda: [det.take_best(m, spec.budgets[lvl])
+                        for lvl, m in zip(lvls, maps)],
+        orb=orb_all,
+        extract=lambda: extract(images, txy, tv, spec),
+        extract_plain=extract_plain)
+    split = {k: graph_ms(fn) for k, fn in parts.items()}
+    split["rest"] = split["extract"] - sum(
+        split[k] for k in ("pyramid", "detect", "select", "orb"))
+    return split
+
+
+# the fleet cell's geometry, both live cells', and a 1920x1200 camera, whose
+# first level's min distance is 9
+GFTT_GEOMETRIES = ((752, 480, 8), (752, 480, 1), (1241, 376, 1),
+                   (1920, 1200, 1))
+
+
+def phase_gftt(smi):
+    """GFTT detection (``csrc/gftt_peaks.cu``, one launch for all levels of
+    a frame step) at the fleet's and both live cells' geometries and at
+    1920x1200, on rendered frames: the masked maps bit-equal to the plain version on the
+    card at every level, one launch a call, and the device time of 20
+    calls after 3 warm-ups (CUDA events around one CUDA-graph replay of
+    the 20, so host launches do not count) of kernel and plain version,
+    beside the least time: each pixel read once and written once in
+    float32 at 3.35 TB/s. Then the nodes of the fleet geometry's chunk
+    graph with the plain detection (the parent's) and with the kernel."""
+    from slam_tpu_torch.kernels import launches
+    from slam_tpu_torch.ops import detector as det
+    from slam_tpu_torch.ops.frontend import min_distances
+    from slam_tpu_torch.ops.pyramid import build_pyramid, device_operators
+    from slam_tpu_torch.params import Parameters, ParametersSlam, \
+        StaticSettings
+    from slam_tpu_torch.utils.synthetic import (default_camera, make_world,
+                                                render_frame)
+
+    settings = StaticSettings(Parameters(slam=ParametersSlam()))
+    scales = tuple(float(x) for x in settings.scaleFactors)
+    rows = {}
+    for w, h, seqs in GFTT_GEOMETRIES:
+        cam = default_camera(w, h)
+        patches = np.random.default_rng(31).integers(
+            40, 255, (500, 11, 11)).astype(np.uint8)
+        frames = np.stack([render_frame(
+            make_world(n_frames=1, n_landmarks=500, seed=40 + i,
+                       trajectory="loop", lap_frames=LAP, camera=cam),
+            patches, 0, w, h) for i in range(seqs)])
+        sizes, rs, bs = device_operators(w, h, scales, torch.device("cuda"))
+        levels, _ = build_pyramid(torch.from_numpy(frames).cuda().float(),
+                                  rs, bs)
+        mds = min_distances(settings, sizes)
+        before = launches.GFTT.total
+        got = det.gftt_peaks(levels, mds)
+        per_step = launches.GFTT.total - before
+        assert per_step == 1, per_step
+        want = det.gftt_peaks_plain(levels, mds)
+        for lvl, (a, b) in enumerate(zip(got, want)):
+            bad = int((a.view(torch.int32) != b.view(torch.int32)).sum())
+            assert bad == 0, f"{w}x{h} S={seqs} level {lvl}: {bad} differ"
+        peaks = sum(int(torch.isfinite(m).sum()) for m in got)
+        pixels = seqs * sum(a * b for a, b in sizes)
+        row = dict(ms=graph_ms(lambda: det.gftt_peaks(levels, mds)),
+                   plain_ms=graph_ms(lambda: det.gftt_peaks_plain(levels,
+                                                                  mds)),
+                   bound_ms=pixels * 8 / BYTES_PER_S * 1e3, pixels=pixels,
+                   peaks=peaks, launches_per_step=per_step,
+                   min_distances=mds)
+        rows[f"{w}x{h}x{seqs}"] = row
+        print(f"gftt_peaks {w}x{h} S={seqs}: {len(levels)} levels "
+              f"(min distances {mds}) bit-equal to the plain version "
+              f"({peaks} peaks), {per_step} launch a step; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
+              f"ms, bound {row['bound_ms']:.4f} ms ({pixels} px x 8 B at "
+              f"3.35 TB/s; the levels, {pixels * 4 / 1e6:.1f} MB, may sit in "
+              f"the 50 MB L2 as the pyramid leaves them) = "
+              f"{100 * row['bound_ms'] / row['ms']:.1f} % of the bound; on "
+              f"{smi}")
+    w, h, seqs = GFTT_GEOMETRIES[0]
+    images = torch.from_numpy(np.random.default_rng(6).integers(
+        0, 256, (seqs, h, w)).astype(np.uint8)).cuda()
+    split = _frontend_split(images)
+    print(f"front-end step at {w}x{h} S={seqs}, device ms by part (graph "
+          f"replays): " + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+          + f"; on {smi}")
+    rows["frontend_split_ms"] = split
+    nodes = dict(plain=_chunk_graph_nodes(det.gftt_peaks_plain, w, h, seqs),
+                 kernel=_chunk_graph_nodes(det.gftt_peaks, w, h, seqs))
+    print(f"chunk graph at {w}x{h} S={seqs}, chunks of {CHUNK}: "
+          f"{nodes['plain']} nodes with the plain detection, "
+          f"{nodes['kernel']} with the kernel")
+    rows["chunk_graph_nodes"] = nodes
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this check runs only on a card")
@@ -1569,6 +1812,7 @@ def main():
     name, smi = phase_device()
     build_kernels()
     kernel = phase_kernel(smi, mma_peaks(smi))
+    gftt = phase_gftt(smi)
     cam, worlds, images, deltas = make_inputs()
     main_path = phase_main_path(cam, worlds, images, deltas)
     print(f"main path: {S} sequences x {FRAMES} frames at {WIDTH}x{HEIGHT} in "
@@ -1612,7 +1856,17 @@ def main():
                            + kitti["launches"]),
         "tools_tracker_ms": tt["ms"], "tools_tracker_plain_ms": tt["plain_ms"],
         "tools_tracker_bound_ms": tt["bound_ms"],
-        "tools_tracker_matmul_ms": tt["matmul_ms"]}]}))
+        "tools_tracker_matmul_ms": tt["matmul_ms"]}, {
+        "name": "gftt_peaks", "route": "cuda",
+        "source": "slam_tpu_torch/csrc/gftt_peaks.cu", "replaces": None,
+        "launches": main_path["gftt_launches"], "library_ms": None,
+        "geometries": gftt,
+        "device_slam_launches": slam["gftt_launches"],
+        "interactive_launches": interactive["gftt_launches"],
+        "tracker_launches": tracker["gftt_launches"],
+        "sessions_launches": sessions["gftt_launches"],
+        "tools_launches": (euroc["gftt_launches"] + dvo["gftt_launches"]
+                           + kitti["gftt_launches"])}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import functools
 import os
+import threading
 from itertools import chain
 from typing import Dict, List, NamedTuple
 
@@ -77,6 +78,10 @@ def device_codebook(codebook: np.ndarray, device) -> torch.Tensor:
                             .view(np.int32)).to(device)
 
 
+# concurrent sessions (parallel/batch.py) quantize from several threads
+_COUNT_LOCK = threading.Lock()
+
+
 def quantize(descriptors: np.ndarray, codebook: np.ndarray, device,
              codebook_dev: torch.Tensor = None) -> np.ndarray:
     """Nearest-centroid word ids (first minimum on ties) of (N, 8) uint32
@@ -90,14 +95,13 @@ def quantize(descriptors: np.ndarray, codebook: np.ndarray, device,
     from slam_tpu_torch import native
     threshold = (1 << 23) if native.available() else (1 << 18)
     if n * len(codebook) >= threshold:
-        from slam_tpu_torch.ops.hamming_argmin import (COUNT_LOCK,
-                                                       hamming_argmin)
+        from slam_tpu_torch.ops.hamming_argmin import hamming_argmin
         if codebook_dev is None:
             codebook_dev = device_codebook(codebook, device)
         d = torch.from_numpy(np.ascontiguousarray(descriptors, np.uint32)
                              .view(np.int32)).to(device)
         _, idx = hamming_argmin(d, codebook_dev)
-        with COUNT_LOCK:
+        with _COUNT_LOCK:
             quantize.device_calls += 1
         return idx.cpu().numpy()
     words = native.hamming_argmin(descriptors, codebook)

@@ -5,7 +5,10 @@ Dense Shi-Tomasi (GFTT) or FAST-9/16 response maps, a max-pool grid NMS whose
 window enforces the minimum distance, a 19 px margin, and the per-level
 budget taken as the first ``budget`` entries of a stable descending sort:
 ``jax.lax.top_k`` returns tied scores lowest index first and ``torch.topk``
-does not promise that. Images carry a leading batch dimension.
+does not promise that. Images carry a leading batch dimension. On a card,
+GFTT detection of all levels of a step (quantisation, response, peak test
+and margin) is one launch of the hand-written kernel behind
+:func:`gftt_peaks`.
 """
 from __future__ import annotations
 
@@ -15,6 +18,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from slam_tpu_torch.kernels import launches
+from slam_tpu_torch.ops.pyramid import quantise
 from slam_tpu_torch.params import ORB_PATCH_RADIUS
 
 
@@ -96,12 +101,11 @@ def fast_response(img: torch.Tensor, threshold: float = 10.0) -> torch.Tensor:
                        torch.zeros_like(score_b))
 
 
-def select_keypoints(response: torch.Tensor, budget: int, min_distance: int,
-                     margin: int = ORB_PATCH_RADIUS
-                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(S, H, W) response -> xy (S, budget, 2) float32, score (S, budget),
-    valid (S, budget) bool. A selected pixel is the maximum of its
-    (2*min_distance+1)^2 neighbourhood and lies inside the margin."""
+def peak_map(response: torch.Tensor, min_distance: int,
+             margin: int = ORB_PATCH_RADIUS) -> torch.Tensor:
+    """(S, H, W) response -> (S, H, W) masked map: the response where the
+    pixel is the maximum of its (2*min_distance+1)^2 neighbourhood, above 0
+    and inside the margin, else -inf."""
     S, h, w = response.shape
     md = max(int(min_distance), 1)
     pooled = F.max_pool2d(response[:, None], kernel_size=2 * md + 1,
@@ -111,8 +115,16 @@ def select_keypoints(response: torch.Tensor, budget: int, min_distance: int,
     col = torch.arange(w, device=response.device)[None, :]
     in_margin = ((row >= margin) & (row < h - margin)
                  & (col >= margin) & (col < w - margin))
-    masked = torch.where(is_peak & in_margin, response,
-                         torch.full_like(response, -float("inf")))
+    return torch.where(is_peak & in_margin, response,
+                       torch.full_like(response, -float("inf")))
+
+
+def take_best(masked: torch.Tensor, budget: int
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(S, H, W) masked map -> xy (S, budget, 2) float32, score (S, budget),
+    valid (S, budget) bool: the first ``budget`` pixels of a stable
+    descending sort."""
+    S, h, w = masked.shape
     scores, idx = torch.sort(masked.reshape(S, -1), dim=1, descending=True,
                              stable=True)
     scores, idx = scores[:, :budget], idx[:, :budget]
@@ -121,3 +133,46 @@ def select_keypoints(response: torch.Tensor, budget: int, min_distance: int,
     valid = torch.isfinite(scores) & (scores > 0.0)
     xy = torch.stack([xs, ys], dim=-1)
     return xy, torch.where(valid, scores, torch.zeros_like(scores)), valid
+
+
+def select_keypoints(response: torch.Tensor, budget: int, min_distance: int,
+                     margin: int = ORB_PATCH_RADIUS
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(S, H, W) response -> xy (S, budget, 2) float32, score (S, budget),
+    valid (S, budget) bool. A selected pixel is the maximum of its
+    (2*min_distance+1)^2 neighbourhood and lies inside the margin."""
+    return take_best(peak_map(response, min_distance, margin), budget)
+
+
+def gftt_peaks_plain(levels, min_dists, margin: int = ORB_PATCH_RADIUS):
+    """The plain version of :func:`gftt_peaks`: per level, the quantised
+    image's Shi-Tomasi response through :func:`peak_map`."""
+    return [peak_map(shi_tomasi_response(quantise(img)), md, margin)
+            for img, md in zip(levels, min_dists)]
+
+
+def gftt_peaks(levels, min_dists, margin: int = ORB_PATCH_RADIUS):
+    """GFTT detection of one frame step: (S, H_l, W_l) float32 levels and
+    their min distances -> the (S, H_l, W_l) masked maps that
+    :func:`take_best` sorts.
+
+    CPU tensors (fake tensors included) take the plain version; CUDA
+    tensors launch the hand-written kernel ``csrc/gftt_peaks.cu`` once for
+    all levels (counted in ``kernels/launches.GFTT``, the timer's
+    ``detect.launch``) or raise. The kernel replaces no Pallas kernel (the
+    JAX package leaves detection to XLA, K3-K6); it is bound by bytes,
+    reading each level once and writing its map once, and keeps the
+    gradients, products, box sums and response out of device memory
+    (shared memory over tiles with a halo), bit-equal to the plain
+    version."""
+    if not levels:
+        return []
+    if levels[0].device.type == "cpu":
+        return gftt_peaks_plain(levels, min_dists, margin)
+    from slam_tpu_torch.kernels import gftt_peaks as kernel
+
+    maps, launched = kernel.launch(
+        [t.to(torch.float32).contiguous() for t in levels],
+        [max(int(md), 1) for md in min_dists], margin)
+    launches.GFTT.add(launched)
+    return maps

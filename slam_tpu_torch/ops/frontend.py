@@ -27,10 +27,11 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from slam_tpu_torch.kernels import launches
 from slam_tpu_torch.ops import detector as det
 from slam_tpu_torch.ops import orb
 from slam_tpu_torch.ops.pyramid import (build_pyramid, device_operators,
-                                        level_sizes)
+                                        level_sizes, quantise)
 from slam_tpu_torch.params import ORB_PATCH_RADIUS, StaticSettings
 from slam_tpu_torch.precision import pin_full_f32
 from slam_tpu_torch.utils import timer
@@ -110,16 +111,18 @@ def extract_from_pyramid(levels, blurred, sizes, tracked_xy: torch.Tensor,
     out_desc.append(t_desc)
     out_valid.append(t_ok)
 
-    # detected keypoints per level
-    for lvl, (lvl_img, lvl_blur) in enumerate(zip(levels, blurred)):
-        budget = spec.budgets[lvl]
-        if budget <= 0:
-            continue
-        q = torch.round(torch.clamp(lvl_img, 0.0, 255.0))
-        resp = det.fast_response(q) if spec.use_fast \
-            else det.shi_tomasi_response(q)
-        xy, _, valid = det.select_keypoints(resp, budget, spec.min_dists[lvl])
-        ang, desc = orb.compute_orb(lvl_img, lvl_blur, xy)
+    # detected keypoints per level; GFTT detects on every level at once
+    lvls = [lvl for lvl, budget in enumerate(spec.budgets) if budget > 0]
+    mds = [spec.min_dists[lvl] for lvl in lvls]
+    if spec.use_fast:
+        maps = [det.peak_map(det.fast_response(quantise(levels[lvl])), md)
+                for lvl, md in zip(lvls, mds)]
+    else:
+        maps = det.gftt_peaks([levels[lvl] for lvl in lvls], mds)
+    for lvl, masked in zip(lvls, maps):
+        lvl_img, budget = levels[lvl], spec.budgets[lvl]
+        xy, _, valid = det.take_best(masked, budget)
+        ang, desc = orb.compute_orb(lvl_img, blurred[lvl], xy)
         out_pts.append(xy * float(np.float32(spec.scale_factors[lvl])))
         out_oct.append(torch.full((S, budget), lvl, dtype=torch.int32,
                                   device=dev))
@@ -156,6 +159,7 @@ class _Geometry:
         self.out = None
         self.pool = None
         self.capture_seconds: Optional[float] = None
+        self.launches = {}            # the graph's kernel launches
 
 
 class ExtractGraphCache:
@@ -180,7 +184,9 @@ class ExtractGraphCache:
     next call of the entry can overwrite them; in the stream's order, that
     work runs before the next replay. While ``utils/timer`` is on, the
     counters' increments go to the timer too (``extract.eager``,
-    ``extract.capture`` with its seconds, ``extract.replay``)."""
+    ``extract.capture`` with its seconds, ``extract.replay``). A capture
+    counts the GFTT kernel launches its graph holds, and each replay adds
+    them to ``kernels/launches`` (timer ``detect.launch``)."""
 
     def __init__(self):
         self._entries: Dict[tuple, _Geometry] = {}
@@ -248,6 +254,7 @@ class ExtractGraphCache:
                         if e.graph is None:
                             self._capture(e, spec, device)
                         e.graph.replay()
+                        launches.replay(e.launches)
                         out = e.out
                         self._tally(True)
             yield out
@@ -272,8 +279,9 @@ class ExtractGraphCache:
             caller.wait_stream(side)
             e.pool = torch.cuda.graph_pool_handle()
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=e.pool, stream=side,
-                                  capture_error_mode="thread_local"):
+            with launches.capture() as e.launches, \
+                    torch.cuda.graph(graph, pool=e.pool, stream=side,
+                                     capture_error_mode="thread_local"):
                 e.out = _extract_frame(*e.inputs, spec)
         e.graph = graph
         e.capture_seconds = time.perf_counter() - t0

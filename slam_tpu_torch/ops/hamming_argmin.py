@@ -17,17 +17,11 @@ extraction and ``ops/bow.quantize``'s device branch.
 """
 from __future__ import annotations
 
-import threading
-
 import torch
 
+from slam_tpu_torch.kernels import launches
 from slam_tpu_torch.ops.hamming import hamming_matrix
-from slam_tpu_torch.utils import timer
 
-
-# concurrent sessions (parallel/batch.py) launch from several threads; the
-# launch counters add under this lock so that no launch goes uncounted
-COUNT_LOCK = threading.Lock()
 # codebook rows per distance matrix of the plain version: an (N, 65536)
 # float32 matrix would take 224 MB at N = 856
 _PLAIN_CHUNK = 8192
@@ -55,17 +49,12 @@ def hamming_argmin(desc: torch.Tensor, codebook: torch.Tensor):
     """(N, 8) x (V, 8) int32 -> (dist (N,), idx (N,)) int32.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel once
-    (counted in ``hamming_argmin.launches``, and in the timer's
-    ``k1.launch`` while timing is on; N = 0 launches nothing) or raise."""
+    (counted in ``kernels/launches.K1``, the timer's ``k1.launch``; N = 0
+    launches nothing) or raise."""
     if desc.device.type == "cpu" and codebook.device.type == "cpu":
         return hamming_argmin_plain(desc, codebook)
     from slam_tpu_torch.kernels import hamming_argmin as kernel
 
     dist, idx, launched = kernel.launch(desc, codebook)
-    with COUNT_LOCK:
-        hamming_argmin.launches += launched
-    timer.count("k1.launch", launched)
+    launches.K1.add(launched)
     return dist, idx
-
-
-hamming_argmin.launches = 0

@@ -80,7 +80,8 @@ def pyramid_operators(width: int, height: int, scale_key: tuple):
     return sizes, resize_ops, blur_ops
 
 
-def _quantise(x: torch.Tensor) -> torch.Tensor:
+def quantise(x: torch.Tensor) -> torch.Tensor:
+    """Pixels rounded to the uint8 grid, as float32."""
     return torch.round(torch.clamp(x, 0.0, 255.0))
 
 
@@ -90,8 +91,8 @@ def build_pyramid(image: torch.Tensor, resize_ops, blur_ops):
     (rows, cols) tensor pairs on the image's device."""
     levels = [image]
     for rows, cols in resize_ops:
-        levels.append(_quantise(rows @ levels[-1] @ cols.T))
-    blurred = [_quantise(g_rows @ lvl @ g_cols.T)
+        levels.append(quantise(rows @ levels[-1] @ cols.T))
+    blurred = [quantise(g_rows @ lvl @ g_cols.T)
                for (g_rows, g_cols), lvl in zip(blur_ops, levels)]
     return levels, blurred
 

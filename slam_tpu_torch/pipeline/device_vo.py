@@ -29,8 +29,8 @@ import numpy as np
 import torch
 
 from slam_tpu_torch.geometry.camera import PinholeCamera
+from slam_tpu_torch.kernels import launches
 from slam_tpu_torch.ops import ba, lie
-from slam_tpu_torch.ops import hamming_argmin as k1_ops
 from slam_tpu_torch.ops.bow import make_codebook
 from slam_tpu_torch.ops.camera import pack_camera, project, unproject
 from slam_tpu_torch.ops.frontend import FrontendSpec, extract, min_distances
@@ -1047,7 +1047,7 @@ class _Shape:
         self.snaps: Optional[SnapOut] = None
         self.warm = False
         self.graph = None
-        self.k1_launches = 0
+        self.launches = {}        # the graph's kernel launches, by counter
 
 
 def _copy_in(dst: torch.Tensor, src: torch.Tensor) -> None:
@@ -1078,8 +1078,9 @@ class _ChunkGraph:
     eager twin. From the second chunk of a shape on a card it is one CUDA
     graph, captured on a side stream into this shard's private memory pool
     and replayed on the current stream. A failed capture or replay raises;
-    nothing carries on eagerly. Capture counts the K1 launches the graph
-    holds, and each replay adds them to ``hamming_argmin.launches``."""
+    nothing carries on eagerly. Capture counts the K1 and GFTT launches the
+    graph holds, and each replay adds them to ``kernels/launches`` (timer
+    ``k1.launch``, ``detect.launch``)."""
 
     def __init__(self, step, cfg: DeviceVOConfig, focal: float,
                  state: VOState):
@@ -1147,14 +1148,9 @@ class _ChunkGraph:
             self._pool = torch.cuda.graph_pool_handle()
             self._stream = torch.cuda.Stream(self.device)
         graph = torch.cuda.CUDAGraph()
-        before = k1_ops.hamming_argmin.launches
-        with torch.cuda.graph(graph, pool=self._pool, stream=self._stream):
+        with launches.capture() as b.launches, \
+                torch.cuda.graph(graph, pool=self._pool, stream=self._stream):
             self._run_into(b)
-        with k1_ops.COUNT_LOCK:
-            # the wrapper counted the launches it recorded; none ran
-            b.k1_launches = k1_ops.hamming_argmin.launches - before
-            k1_ops.hamming_argmin.launches -= b.k1_launches
-        timer.count("k1.launch", -b.k1_launches)
         b.graph = graph
         torch.cuda.synchronize(self.device)
         self.capture_seconds.append(time.perf_counter() - t0)
@@ -1182,9 +1178,7 @@ class _ChunkGraph:
                     self._capture(b)
                 with timer.section("vo.replay"):
                     b.graph.replay()
-                with k1_ops.COUNT_LOCK:
-                    k1_ops.hamming_argmin.launches += b.k1_launches
-                timer.count("k1.launch", b.k1_launches)
+                launches.replay(b.launches)
             else:
                 with timer.section("vo.eager"):
                     self._run_into(b)

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from slam_tpu_torch.kernels import launches
 from slam_tpu_torch.ops import bow as tbow
 from slam_tpu_torch.params import ParametersSlam
 
@@ -120,13 +121,12 @@ def test_bow_index_equals_the_reference():
 def test_quantize_on_the_card_equals_the_cpu():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    from slam_tpu_torch.ops.hamming_argmin import hamming_argmin
 
     rng = np.random.default_rng(8)
     cb = _tied_vocabulary()
     desc = _near_copies(rng, cb, 856, flips=40)
     desc[:16] = cb[:16]
-    before = hamming_argmin.launches
+    before = launches.K1.total
     got = tbow.quantize(desc, cb, "cuda")
-    assert hamming_argmin.launches == before + 1
+    assert launches.K1.total == before + 1
     np.testing.assert_array_equal(got, tbow.quantize(desc, cb, "cpu"))

@@ -27,7 +27,7 @@ from torch._subclasses.fake_tensor import (DataDependentOutputException,
                                            FakeTensorMode)
 from torch.fx.experimental.proxy_tensor import make_fx
 
-from slam_tpu_torch.ops import hamming_argmin as k1
+from slam_tpu_torch.kernels import launches
 from slam_tpu_torch.pipeline import device_vo as tvo
 from slam_tpu_torch.pipeline.device_slam import DeviceSlam, DeviceSlamParams
 from slam_tpu_torch.utils import timer
@@ -379,18 +379,18 @@ def test_replay_bit_equal_to_eager_on_card(scene):
     _need_card()
     vo, twin = _vo(scene, "cuda"), _vo(scene, "cuda")
     for c in range(CHUNKS):
-        before = k1.hamming_argmin.launches
+        before = launches.K1.total
         out = vo.advance(*_chunk(scene, c))
         torch.cuda.synchronize()
-        assert k1.hamming_argmin.launches - before == T
-        before = k1.hamming_argmin.launches
+        assert launches.K1.total - before == T
+        before = launches.K1.total
         want = twin._advance_eager(*_chunk(scene, c))
-        assert k1.hamming_argmin.launches - before == T
+        assert launches.K1.total - before == T
         _assert_equal(out, want, f"chunk {c} outputs")
         _assert_equal(vo.last_snaps, twin.last_snaps, f"chunk {c} snaps")
         _assert_equal(vo.state, twin.state, f"chunk {c} state")
     shape = next(iter(vo._chunks[0]._shapes.values()))
-    assert shape.graph is not None and shape.k1_launches == T
+    assert shape.graph is not None and shape.launches["k1.launch"] == T
     assert twin._chunks[0]._shapes and all(
         b.graph is None for b in twin._chunks[0]._shapes.values())
 

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from slam_tpu_torch.kernels import launches
 from slam_tpu_torch.ops import hamming as tham
 from slam_tpu_torch.ops.hamming_argmin import (hamming_argmin,
                                                hamming_argmin_plain)
@@ -148,9 +149,9 @@ def test_make_codebook_is_the_trained_vocabulary():
 
 def test_hamming_argmin_cpu_path_does_not_count_launches():
     rng = np.random.default_rng(4)
-    before = hamming_argmin.launches
+    before = launches.K1.total
     hamming_argmin(_t(_desc(rng, 4)), _t(_desc(rng, 128)))
-    assert hamming_argmin.launches == before
+    assert launches.K1.total == before
 
 
 @pytest.mark.cuda
@@ -174,9 +175,9 @@ def test_hamming_argmin_kernel_bit_equal_on_card():
         desc[:len(tied)] = cb[tied][:n]
         first = [np.flatnonzero((cb == cb[j]).all(1))[0] for j in tied]
         dc, cc = _t(desc).cuda(), _t(cb).cuda()
-        before = hamming_argmin.launches
+        before = launches.K1.total
         d, i = hamming_argmin(dc, cc)
-        assert hamming_argmin.launches == before + 1
+        assert launches.K1.total == before + 1
         pd, pi = hamming_argmin_plain(dc, cc)
         torch.cuda.synchronize()
         assert torch.equal(d, pd) and torch.equal(i, pi), (n, v)
