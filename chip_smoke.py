@@ -544,7 +544,7 @@ def phase_chunk_graph(cam, worlds, images, deltas, smi):
             assert not bad, (f"chunk {c}: replay differs from the eager "
                              f"twin in {what} {bad}")
             fields += len(a._fields)
-    captures = graph._chunks[0].capture_seconds
+    captures = graph._chunks[0].graphs.capture_seconds
     assert len(captures) == 1, captures
     # every chunk a replay: the same instance from the start
     graph.reset(p0)
@@ -792,7 +792,7 @@ def make_interactive_inputs(cam):
 def _eager_twins(plan=None):
     """``ops/ba.solve_ba`` and ``solve_ba_two_stage`` as their op-by-op
     twins, with the inputs (pinned host tensors) moved to ``device``
-    first. ``plan`` ({entry: [``BA_GRAPHS.last_served()`` of each call of
+    first. ``plan`` ({entry: [``ops/ba.last_served()`` of each call of
     a graphed session, in order]}) solves each call at the sizes that
     served the graphed call: where a covering bucket took it, on the
     problem padded to that bucket's sizes (``ops/ba.pad_into``), the result
@@ -922,7 +922,7 @@ def phase_interactive(cam, world, frames, odom, smi):
 
     # one problem of every bucket, recorded in the warm-up, and the bucket
     # that served each call of a graphed session, for its eager twins
-    problems, plan, run = {}, {}, cache.run
+    problems, plan, run = {}, {}, ba._dispatch
 
     def recorded(entry, fn, tensors, device, **static):
         key = (entry, tuple(tuple(t.shape) for t in tensors),
@@ -930,7 +930,7 @@ def phase_interactive(cam, world, frames, odom, smi):
         if key not in problems:
             problems[key] = (entry, [t.clone() for t in tensors], static)
         out = run(entry, fn, tensors, device, **static)
-        plan.setdefault(entry, []).append(cache.last_served())
+        plan.setdefault(entry, []).append(ba.last_served())
         return out
 
     def covers(p):
@@ -944,7 +944,7 @@ def phase_interactive(cam, world, frames, odom, smi):
         return eager, eager_wall
 
     mapper_helpers.global_bundle_adjust = global_untouched
-    cache.run = recorded
+    ba._dispatch = recorded
     graphed = ba.solve_ba, ba.solve_ba_two_stage
     try:
         cache.reset_counts()
@@ -963,7 +963,7 @@ def phase_interactive(cam, world, frames, odom, smi):
         timed_counts = cache.counters()
         timed_plan = plan
         timer.disable_timing()
-        del cache.run
+        ba._dispatch = run
         held = [(name, got, covers(p)) for name, got, p in
                 (("warm-up", warm, warm_plan), ("timed", slam, timed_plan))]
         eager_stats = timer.enable_timing()
@@ -1635,7 +1635,7 @@ def _chunk_graph_nodes(detect, w, h, seqs):
     finally:
         det.gftt_peaks, torch.cuda.CUDAGraph = kept, graph_cls
     torch.cuda.synchronize()
-    (shape,) = vo._chunks[0]._shapes.values()
+    (shape,) = vo._chunks[0].graphs._entries.values()
     return _graph_nodes(shape.graph)
 
 

@@ -18,7 +18,7 @@ ported: callers build the tensors directly, through pinned memory.
 
 ``solve_ba`` and ``solve_ba_two_stage`` are the counterparts of the JAX
 package's jitted entry points: one program per padded bucket
-(:class:`BAGraphCache`, one CUDA graph a bucket on a card). Their op-by-op
+(:data:`BA_GRAPHS`, one CUDA graph a bucket on a card). Their op-by-op
 twins, ``solve_ba_eager`` and ``solve_ba_two_stage_eager``, are what the
 first call of a bucket runs, unless a larger held bucket covers it: then
 that bucket solves it, padded by the rule the problem builder pads by
@@ -26,16 +26,15 @@ that bucket solves it, padded by the rule the problem builder pads by
 """
 from __future__ import annotations
 
-import contextlib
 import math
 import threading
-import time
-from typing import Dict, NamedTuple, Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from slam_tpu_torch.ops import lie
+from slam_tpu_torch.ops.graphs import Entry, GraphCache, where
 from slam_tpu_torch.precision import pin_full_f32
 from slam_tpu_torch.utils import timer
 
@@ -96,7 +95,7 @@ def fill_padding(t, field: str, start: int) -> None:
     """Write what a padded slot of ``field`` holds into ``t[:, start:]``
     (``t`` a batched tensor or NumPy array, its padded axis second): how
     ``pipeline/bundle_adjustment._ProblemBuilder.build`` pads a problem, and
-    how a covering bucket (:class:`BAGraphCache`) pads a smaller one."""
+    how a covering bucket (:func:`_dispatch`) pads a smaller one."""
     tail = t[:, start:]
     fill = PADDING[field][1]
     if fill == "eye":
@@ -454,30 +453,13 @@ def _as_dtype(res: BAResult, dtype: torch.dtype) -> BAResult:
                       for t in res))
 
 
-class _Bucket:
-    """One entry's padded bucket: its key, the sizes it is known by, its
-    calls, the smaller buckets' first calls it covered, its fixed input
-    buffers, and the graph with the outputs it writes (on the CPU, the
-    last eager run's outputs)."""
-
-    def __init__(self, key: tuple, dims: dict):
-        self.key = key
-        self.dims = dims
-        self.calls = self.covers = 0
-        self.inputs = None
-        self.graph = None
-        self.out: Optional[BAResult] = None
-        self.capture_seconds: Optional[float] = None
-        self.size = sum(math.prod(shape) for shape, _ in key[3])
-
-
 # each entry's inputs, in order: the padding rule covers those it names
 ENTRY_FIELDS = {"solve_ba": BAProblem._fields,
                 "solve_ba_two_stage": BAProblem._fields + (
                     "stage2_pose_fixed", "anchor_slot", "anchor_sqrt_info")}
 
 
-def _fits(b: _Bucket, key: tuple, fields) -> bool:
+def _fits(b: Entry, key: tuple, fields) -> bool:
     """Whether bucket ``b`` can hold a call keyed ``key``: the same entry,
     device, stream, static arguments, dtypes and sizes, but for the padded
     pose, point and observation axes, where it is at least as large."""
@@ -505,241 +487,95 @@ def pad_into(entry: str, held, tensors) -> None:
             fill_padding(d, f, n)
 
 
-class BAGraphCache:
-    """One program per entry and padded bucket, process-wide, as the JAX
-    package's jit cache holds one compiled program per static arguments and
-    padded shapes (``slam_tpu/ops/ba.py:333``, ``:507``).
+# one program per entry and padded bucket, process-wide, as the JAX
+# package's jit cache holds one compiled program per static arguments and
+# padded shapes (slam_tpu/ops/ba.py:333, :507); its facts are in ops/graphs'
+# table
+BA_GRAPHS = GraphCache("ba", pool="stream", lock="device",
+                       capture_error_mode="thread_local", warm_up=True)
+_SERVED = threading.local()      # this thread's last call's bucket
 
-    A bucket is the entry, the device, the caller's current stream, every
-    input's shape and dtype, and the static arguments (``iterations``,
-    ``cg_iters``, ``huber_delta``, ``init_lambda``). A call of a bucket
-    already held copies its inputs into the bucket's fixed buffers and, on
-    a card, replays the bucket's CUDA graph on the caller's current stream;
-    the bucket's second call captures it first: one run of the twin on a
-    side stream in the calling thread (its cuBLAS and cuSOLVER handles and
-    workspaces), then the capture into the stream's private memory pool
-    (``capture_error_mode="thread_local"``, so that other threads' work and
-    waits go on). On the CPU those calls run the twin eagerly on the same
-    buffers. The result is a copy of the bucket's outputs, which the next
-    call of the bucket overwrites. A per-device lock holds from the input
-    copy to that copy, so buffers and pool serve one call at a time. A
-    failed capture or replay raises; nothing carries on eagerly.
 
-    A bucket's first call is covered where it can be: among the held
-    buckets of its entry, device, stream, dtypes and static arguments, with
-    the same S, E and P, at least its K, M and O, and a graph (on the CPU,
-    buffers), the one with the fewest padded elements takes it. Its
-    tensors go into the leading slices of that bucket's buffers, the rest
-    is padded as ``_ProblemBuilder.build`` pads a problem
-    (:func:`pad_into`, :func:`fill_padding`), the bucket is replayed (on
-    the CPU, its twin run), and the result is cut back to the call's K, M
-    and O. The padded slots add exact zeros to the float64 LM, so the
-    solve is the call's own problem, rounded as the larger bucket's sums
-    and solves round it: bit-equal to its own bucket's solve on the CPU,
-    within float32 last bits on a card (``tests/test_torch_ba_cover.py``,
-    ``tests/test_torch_ba_card.py``). A first call that nothing covers runs
-    the op-by-op twin on its own tensors. Either way the call makes its
-    bucket, which its next call captures: a cover stands in for a shape's
-    first call only, so which buckets a process ends with does not depend
-    on the order it met them, and once a session's shapes all have their
-    buckets, its solves do not depend on what else the process holds.
-    ``last_served()`` names the bucket that solved the thread's last call.
-
-    While ``utils/timer`` is on, the counters' increments go to the timer
-    too (``ba.eager``, ``ba.capture`` with its seconds, ``ba.replay``,
-    ``ba.cover``), the copy and padding of a covered call is the span
-    ``ba.cover_pad``, and CUDA timing events are recorded around each
-    replay on the caller's stream; whoever collects the result takes them
-    (``take_replay_events``) and reads the replay's device time once the
-    result has arrived."""
-
-    def __init__(self):
-        self._buckets: Dict[tuple, _Bucket] = {}
-        self._lock = threading.Lock()        # the dicts and the counters
-        self._local = threading.local()      # this thread's last replay
-        self._device_locks: Dict[torch.device, threading.Lock] = {}
-        self._pools: Dict[tuple, tuple] = {}  # (device, stream) -> pool
-        self._side: Dict[torch.device, "torch.cuda.Stream"] = {}
-        self.reset_counts()
-
-    def reset_counts(self) -> None:
-        """Zero the counters and every bucket's calls; graphs stay."""
-        with self._lock:
-            self.eager_runs = self.captures = self.replays = self.covers = 0
-            self.capture_seconds = []
-            for b in self._buckets.values():
-                b.calls = b.covers = 0
-
-    def clear(self) -> None:
-        """Drop every bucket, graph and pool."""
-        with self._lock:
-            self._buckets.clear()
-            self._pools.clear()
-        self.reset_counts()
-
-    def _cover(self, key: tuple, on_card: bool) -> Optional[_Bucket]:
-        """The smallest held bucket that can take a call keyed ``key``."""
-        fit = [b for b in self._buckets.values()
+def _cover(key: tuple, on_card: bool):
+    """The policy that picks, among the held buckets, the smallest that
+    can take a first call keyed ``key``."""
+    def pick(held):
+        fit = [b for b in held
                if (b.graph if on_card else b.inputs) is not None
                and _fits(b, key, ENTRY_FIELDS[key[0]])]
-        return min(fit, key=lambda b: b.size, default=None)
-
-    def run(self, entry: str, fn, tensors, device, **static) -> BAResult:
-        """``fn(*tensors)`` (a ``BAResult``) as ``entry``'s program for
-        these shapes and ``static`` on ``device``. ``tensors`` may lie on
-        the host (pinned, for an asynchronous copy) or on ``device``."""
-        self._local.replay = None
-        device = torch.device(device)
-        on_card = device.type == "cuda"
-        if on_card and device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
-        stream = (torch.cuda.current_stream(device).cuda_stream if on_card
-                  else 0)
-        key = (entry, device, stream,
-               tuple((tuple(t.shape), t.dtype) for t in tensors),
-               tuple(sorted(static.items())))
-        with self._lock:
-            b = self._buckets.get(key)
-            first = b is None
-            if first:
-                # the first 18 tensors are a BAProblem's fields
-                b = self._buckets[key] = _Bucket(key, dict(
-                    entry=entry, S=tensors[0].shape[0],
-                    K=tensors[0].shape[1], M=tensors[2].shape[1],
-                    O=tensors[4].shape[1], E=tensors[9].shape[1],
-                    P=tensors[14].shape[1], **static))
-            b.calls += 1
-            into = self._cover(key, on_card) if first else b
-            covered = first and into is not None
-            if covered:
-                into.covers += 1
-                self.covers += 1
-                timer.count("ba.cover")
-            elif first:
-                self.eager_runs += 1
-                timer.count("ba.eager")
-            self._local.served = dict((into or b).dims, covered=covered)
-            lock = self._device_locks.setdefault(device, threading.Lock())
-        if into is None:
-            return fn(*(t.to(device, non_blocking=True) for t in tensors))
-        with lock, (torch.cuda.device(device) if on_card
-                    else contextlib.nullcontext()):
-            if covered:
-                with timer.section("ba.cover_pad"):
-                    pad_into(entry, into.inputs, tensors)
-            else:
-                if b.inputs is None:
-                    b.inputs = [torch.empty(t.shape, dtype=t.dtype,
-                                            device=device) for t in tensors]
-                for d, s in zip(b.inputs, tensors):
-                    d.copy_(s, non_blocking=True)
-            if not on_card:
-                into.out = fn(*into.inputs)
-                if not covered:
-                    with self._lock:
-                        self.eager_runs += 1
-                    timer.count("ba.eager")
-            else:
-                if into.graph is None:
-                    self._capture(into, fn, device, stream)
-                if timer.TIME_STATS is None:
-                    into.graph.replay()
-                else:
-                    start, end = (torch.cuda.Event(enable_timing=True)
-                                  for _ in range(2))
-                    start.record()
-                    into.graph.replay()
-                    end.record()
-                    self._local.replay = (start, end)
-                if not covered:
-                    with self._lock:
-                        self.replays += 1
-                    timer.count("ba.replay")
-            out = into.out
-            if covered:
-                k, m, o = (tensors[i].shape[1] for i in (0, 2, 4))
-                out = BAResult(out.poses[:, :k], out.points[:, :m],
-                               out.obs_chi2[:, :o], out.cost)
-            return BAResult(*(t.clone() for t in out))
-
-    def take_replay_events(self) -> Optional[tuple]:
-        """(start, end) CUDA events around this thread's last replay, if
-        timing was on for it and no one has taken them; then forgets
-        them."""
-        events = getattr(self._local, "replay", None)
-        self._local.replay = None
-        return events
-
-    def last_served(self) -> Optional[dict]:
-        """The sizes and static arguments of the bucket that solved this
-        thread's last call, ``covered`` True where that was a larger
-        bucket covering it (the sizes of the solve, padding included)."""
-        return getattr(self._local, "served", None)
-
-    def _capture(self, b: _Bucket, fn, device: torch.device,
-                 stream: int) -> None:
-        t0 = time.perf_counter()
-        with self._lock:
-            side = self._side.get(device)
-            if side is None:
-                side = self._side[device] = torch.cuda.Stream(device)
-            pool = self._pools.get((device, stream))
-            if pool is None:
-                pool = self._pools[(device, stream)] = \
-                    torch.cuda.graph_pool_handle()
-        caller = torch.cuda.current_stream(device)
-        side.wait_stream(caller)
-        with torch.cuda.stream(side):
-            fn(*b.inputs)
-        caller.wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=pool, stream=side,
-                              capture_error_mode="thread_local"):
-            b.out = fn(*b.inputs)
-        b.graph = graph
-        b.capture_seconds = time.perf_counter() - t0
-        with self._lock:
-            self.captures += 1
-            self.capture_seconds.append(b.capture_seconds)
-        timer.add("ba.capture", b.capture_seconds)
-
-    def buckets(self) -> list:
-        """Each bucket's sizes, static arguments, calls, the smaller
-        buckets' first calls it covered, whether it has a graph and its capture's seconds, in the
-        order of first sighting."""
-        with self._lock:
-            return [dict(b.dims, calls=b.calls, covers=b.covers,
-                         graph=b.graph is not None,
-                         capture_seconds=b.capture_seconds)
-                    for b in self._buckets.values()]
-
-    def pool_bytes(self) -> int:
-        """Device bytes the graphs' private pools hold (their segments in
-        the allocator's snapshot)."""
-        with self._lock:
-            pools = {tuple(p) for p in self._pools.values()}
-        if not pools:
-            return 0
-        return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
-                   if tuple(s["segment_pool_id"]) in pools)
-
-    def counters(self) -> dict:
-        """Buckets seen, eager runs (first sightings that nothing covered;
-        on the CPU also every later call), captures, replays of a bucket's
-        own calls, covered first calls (replayed, on the CPU run, in a
-        larger bucket),
-        seconds a capture (its warm-up run included) and the pools'
-        bytes."""
-        with self._lock:
-            out = dict(buckets=len(self._buckets), eager_runs=self.eager_runs,
-                       captures=self.captures, replays=self.replays,
-                       covers=self.covers,
-                       capture_seconds=list(self.capture_seconds))
-        out["pool_bytes"] = self.pool_bytes()
-        return out
+        return min(fit, key=lambda b: sum(math.prod(shape)
+                                          for shape, _ in b.key[3]),
+                   default=None)
+    return pick
 
 
-BA_GRAPHS = BAGraphCache()
+def _dispatch(entry: str, fn, tensors, device, **static) -> BAResult:
+    """``fn(*tensors)`` (a ``BAResult``) as ``entry``'s program for these
+    shapes and ``static`` on ``device`` (:data:`BA_GRAPHS`). ``tensors``
+    may lie on the host (pinned, for an asynchronous copy) or on
+    ``device``.
+
+    A bucket is the entry, the device, the caller's current stream, every
+    input's shape and dtype, and the static arguments. Its later calls run
+    through its fixed buffers (``ops/graphs``); the result is a copy of its
+    outputs, taken under the per-device lock.
+
+    A bucket's first call is covered where it can be (:func:`_cover`): the held
+    bucket of its entry, device, stream, dtypes and static arguments with the
+    fewest padded elements, the same S, E and P, at least its K, M and O, and a
+    graph (on the CPU, buffers) takes it. Its tensors go into the leading
+    slices of that bucket's buffers, the rest is padded as
+    ``_ProblemBuilder.build`` pads a problem (:func:`pad_into`,
+    :func:`fill_padding`), the bucket is replayed (on the CPU, its twin run),
+    and the result is cut back to the call's K, M and O. The padded slots add
+    exact zeros to the float64 LM, so the solve is the call's own problem,
+    rounded as the larger bucket's sums and solves round it: bit-equal to its
+    own bucket's solve on the CPU, within float32 last bits on a card
+    (``tests/test_torch_ba_cover.py``, ``tests/test_torch_ba_card.py``). A
+    first call that nothing covers runs the op-by-op twin on its own tensors.
+    Either way the call makes its bucket, which its next call captures: a cover
+    stands in for a shape's first call only, so which buckets a process ends
+    with does not depend on the order it met them, and once a session's shapes
+    all have their buckets, its solves do not depend on what else the process
+    holds. :func:`last_served` names the bucket that solved the thread's last
+    call. While ``utils/timer`` is on, the copy and padding of a covered call
+    is the span ``ba.cover_pad``; whoever collects the result takes the
+    replay's CUDA events (``BA_GRAPHS.take_replay_events``)."""
+    device, on_card, stream = where(device)
+    key = (entry, device, stream,
+           tuple((tuple(t.shape), t.dtype) for t in tensors),
+           tuple(sorted(static.items())))
+    # the first 18 tensors are a BAProblem's fields
+    b, first = BA_GRAPHS.entry(key, dict(
+        entry=entry, S=tensors[0].shape[0], K=tensors[0].shape[1],
+        M=tensors[2].shape[1], O=tensors[4].shape[1],
+        E=tensors[9].shape[1], P=tensors[14].shape[1], **static))
+    into = BA_GRAPHS.cover(_cover(key, on_card)) if first else b
+    covered = first and into is not None
+    _SERVED.dims = dict((into or b).dims, covered=covered)
+    if into is None:
+        return BA_GRAPHS.eager(fn, *(t.to(device, non_blocking=True)
+                                     for t in tensors))
+    with BA_GRAPHS.hold(into, device):
+        if covered:
+            with timer.section("ba.cover_pad"):
+                pad_into(entry, into.inputs, tensors)
+        else:
+            BA_GRAPHS.copy_in(b, tensors, device)
+        out = BA_GRAPHS.run(into, lambda: fn(*into.inputs), device,
+                            own=not covered)
+        if covered:
+            k, m, o = (tensors[i].shape[1] for i in (0, 2, 4))
+            out = BAResult(out.poses[:, :k], out.points[:, :m],
+                           out.obs_chi2[:, :o], out.cost)
+        return BAResult(*(t.clone() for t in out))
+
+
+def last_served() -> Optional[dict]:
+    """The sizes and static arguments of the bucket that solved this
+    thread's last call, ``covered`` True where that was a larger bucket
+    covering it (the sizes of the solve, padding included)."""
+    return getattr(_SERVED, "dims", None)
 
 
 def solve_ba_eager(p: BAProblem, iterations: int, cg_iters: int,
@@ -761,7 +597,7 @@ def solve_ba(p: BAProblem, iterations: int, cg_iters: int,
     problem in pinned host memory is copied straight into the bucket's
     buffers)."""
     pin_full_f32()
-    return BA_GRAPHS.run(
+    return _dispatch(
         "solve_ba", lambda *t: solve_ba_eager(
             BAProblem(*t), iterations, cg_iters, huber_delta, init_lambda),
         tuple(p), p.poses.device if device is None else device,
@@ -822,7 +658,7 @@ def solve_ba_two_stage(p: BAProblem, stage2_pose_fixed: torch.Tensor,
     (:data:`BA_GRAPHS`), on ``device`` as ``solve_ba``."""
     pin_full_f32()
     n = len(p)
-    return BA_GRAPHS.run(
+    return _dispatch(
         "solve_ba_two_stage", lambda *t: solve_ba_two_stage_eager(
             BAProblem(*t[:n]), *t[n:], iterations, cg_iters, huber_delta,
             init_lambda),

@@ -20,16 +20,14 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import threading
-import time
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from slam_tpu_torch.kernels import launches
 from slam_tpu_torch.ops import detector as det
 from slam_tpu_torch.ops import orb
+from slam_tpu_torch.ops.graphs import GraphCache, where
 from slam_tpu_torch.ops.pyramid import (build_pyramid, device_operators,
                                         level_sizes, quantise)
 from slam_tpu_torch.params import ORB_PATCH_RADIUS, StaticSettings
@@ -144,185 +142,61 @@ def _extract_frame(image: torch.Tensor, tracked_xy: torch.Tensor,
             f.valid[0])
 
 
-class _Geometry:
-    """One extraction geometry on one device and stream: its lock, its
-    fixed input buffers, the band matrices its graph reads, and the graph
-    with the outputs it writes."""
-
-    def __init__(self, dims: dict):
-        self.dims = dims
-        self.lock = threading.Lock()
-        self.calls = 0
-        self.inputs = None
-        self.operators = None
-        self.graph = None
-        self.out = None
-        self.pool = None
-        self.capture_seconds: Optional[float] = None
-        self.launches = {}            # the graph's kernel launches
+def _before_capture(key: tuple):
+    """Before an extraction graph's capture: TF32 off (it would choose
+    other cuBLAS kernels for the pyramid's band matmuls), and the
+    geometry's band matrices, which the graph reads by address, for its
+    entry to hold."""
+    pin_full_f32()
+    device, _, spec, _ = key
+    return _operators(spec, device)
 
 
-class ExtractGraphCache:
-    """One program per extraction geometry, process-wide, as
-    :class:`slam_tpu_torch.ops.ba.BAGraphCache` holds one per BA bucket.
+# one program per extraction geometry, process-wide; its facts are in
+# ops/graphs' table
+EXTRACT_GRAPHS = GraphCache("extract", pool="entry", lock="entry",
+                            capture_error_mode="thread_local", warm_up=True,
+                            before_capture=_before_capture)
+
+
+@contextlib.contextmanager
+def extraction(spec: FrontendSpec, image: torch.Tensor,
+               tracked_xy: torch.Tensor, tracked_valid: torch.Tensor,
+               device):
+    """Yield (pts, octave, angle, desc, valid) on ``device`` for an (H, W)
+    uint8 ``image`` and (T, 2) / (T,) tracked points, which may lie on the
+    host (pinned, for an asynchronous copy), through
+    :data:`EXTRACT_GRAPHS`.
 
     An entry is the device, the caller's current stream, the
     :class:`FrontendSpec` and the number of slots; every extractor of that
     geometry shares it. Its first call runs :func:`extract` on the
     caller's tensors. Every later call copies the image and the tracked
     points into the entry's fixed buffers and, on a card, replays the
-    entry's CUDA graph on the caller's current stream; the second call
-    captures it first: one run on a side stream in the calling thread, then
-    the capture into the entry's own memory pool
-    (``capture_error_mode="thread_local"``, so that other threads' work and
-    waits go on). On the CPU the later calls run :func:`extract` eagerly on
-    the same buffers. A failed capture or replay raises; nothing carries on
-    eagerly.
-
-    :meth:`extraction` yields the outputs with the entry's lock held, so the
-    caller enqueues what reads them (the words, the copy out) before the
-    next call of the entry can overwrite them; in the stream's order, that
-    work runs before the next replay. While ``utils/timer`` is on, the
-    counters' increments go to the timer too (``extract.eager``,
-    ``extract.capture`` with its seconds, ``extract.replay``). A capture
-    counts the GFTT kernel launches its graph holds, and each replay adds
-    them to ``kernels/launches`` (timer ``detect.launch``)."""
-
-    def __init__(self):
-        self._entries: Dict[tuple, _Geometry] = {}
-        self._lock = threading.Lock()          # the dict and the counters
-        self._capture_lock = threading.Lock()  # captures share a side stream
-        self._side: Dict[torch.device, "torch.cuda.Stream"] = {}
-        self.clear()
-
-    def clear(self) -> None:
-        """Drop every entry, graph and pool, and zero the counters."""
-        with self._lock:
-            self._entries.clear()
-            self.eager_runs = self.captures = self.replays = 0
-            self.capture_seconds = []
-
-    def _tally(self, replay: bool) -> None:
-        with self._lock:
-            if replay:
-                self.replays += 1
-            else:
-                self.eager_runs += 1
-        timer.count("extract.replay" if replay else "extract.eager")
-
-    @contextlib.contextmanager
-    def extraction(self, spec: FrontendSpec, image: torch.Tensor,
-                   tracked_xy: torch.Tensor, tracked_valid: torch.Tensor,
-                   device):
-        """Yield (pts, octave, angle, desc, valid) on ``device`` for an
-        (H, W) uint8 ``image`` and (T, 2) / (T,) tracked points, which may
-        lie on the host (pinned, for an asynchronous copy). On a card the
-        outputs are the graph's own tensors: read them, on the caller's
-        stream, inside the ``with``."""
-        device = torch.device(device)
-        on_card = device.type == "cuda"
-        if on_card and device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
-        stream = (torch.cuda.current_stream(device).cuda_stream if on_card
-                  else 0)
-        slots = tracked_xy.shape[0] + sum(spec.budgets)
-        with self._lock:
-            e = self._entries.get((device, stream, spec, slots))
-            first = e is None
+    entry's CUDA graph on the caller's current stream (the second call
+    captures it first); on the CPU the later calls run :func:`extract`
+    eagerly on the same buffers. The outputs come with the entry's lock
+    held: on a card they are the graph's own tensors, so the caller
+    enqueues what reads them (the words, the copy out) inside the
+    ``with``, on the same stream, before the next call of the entry can
+    replay it."""
+    device, _, stream = where(device)
+    slots = tracked_xy.shape[0] + sum(spec.budgets)
+    e, first = EXTRACT_GRAPHS.entry(
+        (device, stream, spec, slots),
+        dict(width=spec.width, height=spec.height, slots=slots))
+    host = (image, tracked_xy, tracked_valid)
+    with EXTRACT_GRAPHS.hold(e, device):
+        with timer.section("extract.extract"):
             if first:
-                e = self._entries[(device, stream, spec, slots)] = _Geometry(
-                    dict(width=spec.width, height=spec.height, slots=slots))
-            e.calls += 1
-        host = (image, tracked_xy, tracked_valid)
-        with e.lock, (torch.cuda.device(device) if on_card
-                      else contextlib.nullcontext()):
-            with timer.section("extract.extract"):
-                if first:
-                    out = _extract_frame(*(t.to(device, non_blocking=True)
-                                           for t in host), spec)
-                    self._tally(False)
-                else:
-                    if e.inputs is None:
-                        e.inputs = [torch.empty(t.shape, dtype=t.dtype,
-                                                device=device) for t in host]
-                    for d, s in zip(e.inputs, host):
-                        d.copy_(s, non_blocking=True)
-                    if not on_card:
-                        out = _extract_frame(*e.inputs, spec)
-                        self._tally(False)
-                    else:
-                        if e.graph is None:
-                            self._capture(e, spec, device)
-                        e.graph.replay()
-                        launches.replay(e.launches)
-                        out = e.out
-                        self._tally(True)
-            yield out
-
-    def _capture(self, e: _Geometry, spec: FrontendSpec,
-                 device: torch.device) -> None:
-        t0 = time.perf_counter()
-        # TF32 off: it would choose other cuBLAS kernels for the pyramid's
-        # band matmuls
-        pin_full_f32()
-        # the graph reads the band matrices by address: the entry holds them
-        e.operators = _operators(spec, device)
-        with self._lock:
-            side = self._side.get(device)
-            if side is None:
-                side = self._side[device] = torch.cuda.Stream(device)
-        caller = torch.cuda.current_stream(device)
-        with self._capture_lock:
-            side.wait_stream(caller)
-            with torch.cuda.stream(side):
-                _extract_frame(*e.inputs, spec)
-            caller.wait_stream(side)
-            e.pool = torch.cuda.graph_pool_handle()
-            graph = torch.cuda.CUDAGraph()
-            with launches.capture() as e.launches, \
-                    torch.cuda.graph(graph, pool=e.pool, stream=side,
-                                     capture_error_mode="thread_local"):
-                e.out = _extract_frame(*e.inputs, spec)
-        e.graph = graph
-        e.capture_seconds = time.perf_counter() - t0
-        with self._lock:
-            self.captures += 1
-            self.capture_seconds.append(e.capture_seconds)
-        timer.add("extract.capture", e.capture_seconds)
-
-    def entries(self) -> list:
-        """Each entry's width, height and slots, calls, whether it has a
-        graph and its capture's seconds, in the order of first sighting."""
-        with self._lock:
-            return [dict(e.dims, calls=e.calls, graph=e.graph is not None,
-                         capture_seconds=e.capture_seconds)
-                    for e in self._entries.values()]
-
-    def pool_bytes(self) -> int:
-        """Device bytes the graphs' pools hold (their segments in the
-        allocator's snapshot)."""
-        with self._lock:
-            pools = {tuple(e.pool) for e in self._entries.values()
-                     if e.pool is not None}
-        if not pools:
-            return 0
-        return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
-                   if tuple(s["segment_pool_id"]) in pools)
-
-    def counters(self) -> dict:
-        """Entries seen, eager runs (first sightings; on the CPU every
-        call), captures, replays, seconds a capture (its warm-up run
-        included) and the pools' bytes."""
-        with self._lock:
-            out = dict(entries=len(self._entries),
-                       eager_runs=self.eager_runs, captures=self.captures,
-                       replays=self.replays,
-                       capture_seconds=list(self.capture_seconds))
-        out["pool_bytes"] = self.pool_bytes()
-        return out
-
-
-EXTRACT_GRAPHS = ExtractGraphCache()
+                out = EXTRACT_GRAPHS.eager(
+                    _extract_frame, *(t.to(device, non_blocking=True)
+                                      for t in host), spec)
+            else:
+                EXTRACT_GRAPHS.copy_in(e, host, device)
+                out = EXTRACT_GRAPHS.run(
+                    e, lambda: _extract_frame(*e.inputs, spec), device)
+        yield out
 
 
 @dataclasses.dataclass
@@ -416,8 +290,7 @@ class OrbExtractor:
                          (np.ascontiguousarray(image, np.uint8), txy, tvalid))
             if on_card:
                 host = tuple(t.pin_memory() for t in host)
-        with EXTRACT_GRAPHS.extraction(self._spec, *host,
-                                       self.device) as found:
+        with extraction(self._spec, *host, self.device) as found:
             pts, octave, angle, desc, valid = found
             with timer.section("extract.words"):
                 if self.vocab_size > 0:

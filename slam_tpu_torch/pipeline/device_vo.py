@@ -20,20 +20,18 @@ drops with ``mode="drop"`` write to a scratch row M of a temporary buffer.
 """
 from __future__ import annotations
 
-import contextlib
 import threading
-import time
 from typing import Mapping, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from slam_tpu_torch.geometry.camera import PinholeCamera
-from slam_tpu_torch.kernels import launches
 from slam_tpu_torch.ops import ba, lie
 from slam_tpu_torch.ops.bow import make_codebook
 from slam_tpu_torch.ops.camera import pack_camera, project, unproject
 from slam_tpu_torch.ops.frontend import FrontendSpec, extract, min_distances
+from slam_tpu_torch.ops.graphs import GraphCache
 from slam_tpu_torch.ops.hamming import (HAMMING_DIST_THR_LOW, MASK_DIST,
                                         hamming_matrix, mutual_nn)
 from slam_tpu_torch.ops.hamming_argmin import hamming_argmin
@@ -1032,8 +1030,9 @@ def _clone(nt):
 
 class _Shape:
     """The fixed buffers of one chunk shape: the inputs (S, T, H, W) and
-    (S, T, 4, 4), the stacked outputs and snapshot rows, the chunk's stage
-    stamps (``stamp_stages``), and the graph captured over them."""
+    (S, T, 4, 4), the stacked outputs and snapshot rows, and the chunk's
+    stage stamps (``stamp_stages``); ``warm`` once a chunk ran eagerly
+    through them."""
 
     def __init__(self, images: torch.Tensor, odom: torch.Tensor,
                  n_stamps: int, device):
@@ -1046,8 +1045,6 @@ class _Shape:
         self.out: Optional[VOStepOut] = None
         self.snaps: Optional[SnapOut] = None
         self.warm = False
-        self.graph = None
-        self.launches = {}        # the graph's kernel launches, by counter
 
 
 def _copy_in(dst: torch.Tensor, src: torch.Tensor) -> None:
@@ -1070,17 +1067,16 @@ class _ChunkGraph:
     every ``window_ba_every`` of them, then the snapshot rows, over fixed
     buffers. ``self.state`` holds the shard's state and every chunk updates
     it in place; each chunk shape (T, H, W) has its own input and output
-    buffers (:class:`_Shape`).
+    buffers (:class:`_Shape`, kept beside the shape's entry of
+    ``self.graphs``).
 
     The chunk runs eagerly on the CPU, for the first chunk of a shape on a
     card (the warm-up that fills the cached device constants, the BLAS
     handles and the kernel's build), and whenever the caller asks for the
     eager twin. From the second chunk of a shape on a card it is one CUDA
-    graph, captured on a side stream into this shard's private memory pool
-    and replayed on the current stream. A failed capture or replay raises;
-    nothing carries on eagerly. Capture counts the K1 and GFTT launches the
-    graph holds, and each replay adds them to ``kernels/launches`` (timer
-    ``k1.launch``, ``detect.launch``)."""
+    graph of ``self.graphs`` (``ops/graphs``: captured on a side stream in
+    the global mode into this shard's private memory pool, replayed on the
+    current stream, its K1 and GFTT launches counted per replay)."""
 
     def __init__(self, step, cfg: DeviceVOConfig, focal: float,
                  state: VOState):
@@ -1089,10 +1085,8 @@ class _ChunkGraph:
         self._focal = focal
         self.state = state
         self.device = state.pose_cw.device
-        self._shapes = {}
-        self._pool = None
-        self._stream = None
-        self.capture_seconds = []
+        self.graphs = GraphCache("vo", pool="cache", lock=None,
+                                 capture_error_mode="global", warm_up=False)
 
     def chunk(self, state: VOState, images: torch.Tensor,
               odom: torch.Tensor, stamps: Optional[torch.Tensor] = None):
@@ -1142,46 +1136,26 @@ class _ChunkGraph:
             _copy_fields(b.snaps, snaps)
         _copy_fields(self.state, st)
 
-    def _capture(self, b: _Shape) -> None:
-        t0 = time.perf_counter()
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-            self._stream = torch.cuda.Stream(self.device)
-        graph = torch.cuda.CUDAGraph()
-        with launches.capture() as b.launches, \
-                torch.cuda.graph(graph, pool=self._pool, stream=self._stream):
-            self._run_into(b)
-        b.graph = graph
-        torch.cuda.synchronize(self.device)
-        self.capture_seconds.append(time.perf_counter() - t0)
-        timer.add("vo.capture", self.capture_seconds[-1])
-
     def run(self, images: torch.Tensor, odom: torch.Tensor,
             replay: bool) -> _Shape:
         """Copy one chunk's inputs in and run it (replayed where it can be
         and ``replay`` is set); the results are in the returned buffers and
         ``self.state`` until the next chunk of the same shape."""
-        key = (tuple(images.shape), images.dtype)
-        b = self._shapes.get(key)
-        if b is None:
-            b = self._shapes[key] = _Shape(
-                images, odom, len(stamp_stages(self.cfg, images.shape[1])) + 1,
-                self.device)
-        on_card = self.device.type == "cuda"
-        with torch.cuda.device(self.device) if on_card \
-                else contextlib.nullcontext():
+        S, T, H, W = images.shape
+        e, first = self.graphs.entry((tuple(images.shape), images.dtype),
+                                     dict(S=S, T=T, H=H, W=W))
+        if first:
+            e.own = _Shape(images, odom,
+                           len(stamp_stages(self.cfg, T)) + 1, self.device)
+        b = e.own
+        with self.graphs.hold(e, self.device):
             with timer.section("vo.copy_in"):
                 _copy_in(b.images, images)
                 _copy_in(b.odom, odom)
-            if on_card and replay and b.warm:
-                if b.graph is None:
-                    self._capture(b)
-                with timer.section("vo.replay"):
-                    b.graph.replay()
-                launches.replay(b.launches)
+            if self.device.type == "cuda" and replay and b.warm:
+                self.graphs.run(e, lambda: self._run_into(b), self.device)
             else:
-                with timer.section("vo.eager"):
-                    self._run_into(b)
+                self.graphs.eager(self._run_into, b)
                 b.warm = True
         return b
 

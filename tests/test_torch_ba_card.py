@@ -7,7 +7,7 @@ of a padded local-BA problem at the reference's quanta (K 16, M 256, O
 1024) bit-equal on the card and the CPU, so that a torch release that
 changes CUDA ``index_put_(accumulate=True)`` fails here; and a problem
 replayed at its first sight in a larger captured bucket that covers it
-(``BAGraphCache``'s cover) bit-equal to the twin at that bucket's sizes and within two float32
+(``ops/ba._dispatch``'s cover) bit-equal to the twin at that bucket's sizes and within two float32
 ulps of its own bucket's replay, for both entries. The card
 tests import no JAX, so they run on a machine without it:
 
@@ -107,7 +107,7 @@ def test_segment_sum_on_the_card_is_bit_equal():
 def test_cover_replay_on_card(entry):
     """A problem of the local BA's smallest bucket (K 16, M 256, O 1024,
     built by ``_ProblemBuilder``) replayed at its first sight in a captured
-    larger bucket that covers it (``ops/ba.BAGraphCache``'s cover; larger
+    larger bucket that covers it (``ops/ba._dispatch``'s cover; larger
     in M, in O, in K and in all three): bit-equal to the op-by-op twin on the problem padded to
     that bucket's sizes, as every replay is to its twin; and within two
     float32 ulps (of each output's largest magnitude) of the replay of its
@@ -138,7 +138,7 @@ def test_cover_replay_on_card(entry):
                 cover.call(entry, on_card(cover.problem(entry, sizes,
                                                         seed)))
             covered = cover.call(entry, args)
-            b = ba.BA_GRAPHS.last_served()
+            b = ba.last_served()
             c = ba.BA_GRAPHS.counters()
             assert (c["buckets"], c["captures"], c["covers"]) == (2, 1, 1)
             assert b["covered"] and b["K"] * b["M"] * b["O"] > 16 * 256 * 1024

@@ -1,4 +1,4 @@
-"""The covering bucket of ``ops/ba.BAGraphCache``: the first call of a
+"""The covering bucket of ``ops/ba._dispatch``: the first call of a
 padded bucket is solved in the smallest held bucket of its entry, device,
 stream, dtypes and static arguments, with the same S, E and P and at least
 its K, M and O; its tensors fill the leading slices of that bucket's
@@ -177,17 +177,17 @@ def test_covered_solve_equals_the_exact_bucket(cache, entry, axes):
     assert (big["calls"], big["covers"], own["calls"]) == (2, 1, 1)
     assert (own["K"], own["M"], own["O"]) == (16, 256, 1024)
     assert (big["K"], big["M"], big["O"]) != (16, 256, 1024)
-    served = cache.last_served()
+    served = ba.last_served()
     assert served["covered"] and all(served[d] == big[d] for d in "KMO")
     equal(got, call(entry, args, eager=True), f"cover in {axes}")
-    held = list(cache._buckets.values())[0]
+    held = list(cache._entries.values())[0]
     sizes = (big["K"], big["M"], big["O"])
     equal(got, cut(call(entry, grown(entry, args, sizes), eager=True), got),
           f"cover in {axes} against the twin at the bucket's sizes")
     assert held.inputs[0].shape[1] == big["K"]
     assert reference_gap(entry, args, got) < 1e-6
     equal(call(entry, args), got, "second call, own bucket")
-    assert not cache.last_served()["covered"]
+    assert not ba.last_served()["covered"]
     c = cache.counters()
     assert (c["covers"], c["eager_runs"]) == (1, 3), c
     assert cache.buckets()[1]["calls"] == 2
@@ -201,7 +201,7 @@ def test_cover_pads_as_the_builder_pads(cache, entry, monkeypatch):
     b, p = built(*SMALL, 1)
     args = (p,) if entry == "solve_ba" else two_stage_args(p, SMALL[0])
     call(entry, args)
-    held = list(cache._buckets.values())[0]
+    held = list(cache._entries.values())[0]
     quanta = {16: 32, 256: 512, 1024: 2048}
     pad = bundle._pad
     monkeypatch.setattr(bundle, "_pad",
@@ -229,7 +229,7 @@ def test_prewarm_order_does_not_matter(cache, order):
                  for b in cache.buckets())
     assert got == [(16, 256, 1024, 2), (16, 512, 1024, 2),
                    (32, 512, 2048, 2)]
-    assert all(b.inputs is not None for b in cache._buckets.values())
+    assert all(b.inputs is not None for b in cache._entries.values())
     c = cache.counters()
     covers = 0 if order == "growing" else 2
     assert (c["covers"], c["eager_runs"]) == (covers, 6 - covers), c

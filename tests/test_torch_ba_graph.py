@@ -1,5 +1,5 @@
-"""The BA's one-program dispatch (``ops/ba.BAGraphCache``): ``solve_ba`` and
-``solve_ba_two_stage`` run one program per padded bucket, as the JAX
+"""The BA's one-program dispatch (``ops/ba._dispatch`` over ``BA_GRAPHS``):
+``solve_ba`` and ``solve_ba_two_stage`` run one program per padded bucket, as the JAX
 package's jitted entry points do, and ``solve_ba_eager`` and
 ``solve_ba_two_stage_eager`` are their op-by-op twins. On the CPU a bucket's
 later calls run the twin eagerly through the bucket's fixed buffers; on a
@@ -22,7 +22,11 @@ The ``cuda`` tests import no JAX and run on the card:
 
 They hold replays bit-equal to the eager twin over three buckets replayed
 out of capture order, run two threads through the same and different
-buckets at once, and capture while another thread extracts ORB features.
+buckets at once, capture while another thread extracts ORB features, read
+a BA result only after another thread has enqueued an extraction replay on
+the same stream, and hold a copy made inside the chunk's capture to the
+eager twin's after each replay (the outputs' lifetimes that
+``ops/graphs``' separate pools and locks keep).
 """
 import threading
 
@@ -302,7 +306,7 @@ def test_replay_bit_equal_over_buckets_out_of_order_on_card(cache):
     sighted, then captured, then replayed in another order on new
     problems; every replay bit-equal to the eager twin in poses, points,
     chi2 and cost. The third bucket's first sight is covered by the first
-    bucket's graph (``BAGraphCache``'s cover), and equals the twin on its
+    bucket's graph (``_dispatch``'s cover), and equals the twin on its
     problem padded to that bucket's sizes."""
     _need_card()
     import test_torch_ba_cover as cover
@@ -311,7 +315,7 @@ def test_replay_bit_equal_over_buckets_out_of_order_on_card(cache):
         for seed in (10 * i, 10 * i + 1):
             args = _card_problem(seed, bucket)
             got = ba.solve_ba_two_stage(*args, 5, 0)
-            by = cache.last_served()
+            by = ba.last_served()
             assert by["covered"] == (i == 2 and seed == 20), (i, seed, by)
             want = ba.solve_ba_two_stage_eager(*cover.grown(
                 "solve_ba_two_stage", args, (by["K"], by["M"], by["O"])),
@@ -418,3 +422,113 @@ def test_capture_while_another_thread_extracts_on_card(cache):
     assert cache.counters()["captures"] == 1
     _equal(got, ba.solve_ba_two_stage_eager(*args, 5, 0), "captured bucket")
     assert all(runs) and during > 0, (runs, during)
+
+
+@pytest.mark.cuda
+def test_ba_result_read_after_an_extraction_replay_on_card(cache):
+    """Two threads on the card's default stream, in turn: one replays a BA
+    bucket and reads its result only once the other has enqueued an
+    extraction replay (with its words and copy out) behind it; each BA
+    result and each extraction equal their eager twins. The BA's outputs
+    are cloned under its lock and the two programs' pools are apart, so
+    the extraction's replay cannot rewrite what the BA returned."""
+    _need_card()
+    from slam_tpu_torch.ops import frontend as F
+    from test_torch_extract_graph import (_assert_equal, _direct, _frames,
+                                          _settings)
+
+    F.EXTRACT_GRAPHS.clear()
+    ex = F.OrbExtractor(_settings(keypoints=1000), 752, 480,
+                        max_tracked=256, device="cuda")
+    frames = _frames(2, 752, 480)
+    problems = [_card_problem(s, BUCKETS[1]) for s in (40, 41)]
+    for frame, args in zip(frames, problems):      # sighting, capture
+        ex.detect_and_extract(frame)
+        ba.solve_ba_two_stage(*args, 5, 0)
+    want_ba = [ba.solve_ba_two_stage_eager(*a, 5, 0) for a in problems]
+    want_ex = [_direct(ex, f, None, "cuda") for f in frames]
+    torch.cuda.synchronize()
+    rounds = 8
+    solved, enqueued = threading.Event(), threading.Event()
+    got_ba, got_ex, errors = [], [], []
+
+    def solver():
+        try:
+            for r in range(rounds):
+                out = ba.solve_ba_two_stage(*problems[r % 2], 5, 0)
+                solved.set()
+                assert enqueued.wait(timeout=60), r
+                enqueued.clear()
+                got_ba.append(ba.BAResult(*(t.cpu() for t in out)))
+        except Exception as e:      # re-raised below, in the test's thread
+            errors.append(e)
+            solved.set()
+
+    def extractor():
+        try:
+            for r in range(rounds):
+                assert solved.wait(timeout=60), r
+                solved.clear()
+                ex.prefetch(r, frames[r % 2])
+                enqueued.set()
+                got_ex.append(ex.detect_and_extract(None, key=r))
+        except Exception as e:      # re-raised below, in the test's thread
+            errors.append(e)
+            enqueued.set()
+
+    threads = [threading.Thread(target=f) for f in (solver, extractor)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        F.EXTRACT_GRAPHS.clear()
+    assert not errors, errors
+    assert not any(t.is_alive() for t in threads)
+    assert len(got_ba) == len(got_ex) == rounds
+    for r in range(rounds):
+        _equal(got_ba[r], want_ba[r % 2], f"BA round {r}")
+        _assert_equal(got_ex[r], want_ex[r % 2], f"extraction round {r}")
+    assert cache.counters()["replays"] == rounds + 1
+
+
+@pytest.mark.cuda
+def test_copy_inside_the_chunk_capture_follows_each_replay_on_card(
+        monkeypatch):
+    """A copy of the pose LM's output made while the chunk is captured
+    (as ``benchmark/harness/fleet.ChunkRecords`` makes it) lives in the
+    shard's own pool and is rewritten by each replay: after every replayed
+    chunk it equals the copy the eager twin makes of the same chunk."""
+    _need_card()
+    from slam_tpu_torch.pipeline import device_vo as tvo
+    from test_torch_chunk_graph import CHUNKS, _chunk, _vo, make_scene
+
+    copies = {True: [], False: []}        # made under a capture or not
+    pose_ba = tvo._pose_ba
+
+    def recorded(*a, **k):
+        out = pose_ba(*a, **k)
+        copies[torch.cuda.is_current_stream_capturing()].append(out.clone())
+        return out
+
+    monkeypatch.setattr(tvo, "_pose_ba", recorded)
+    scene = make_scene()
+    vo, twin = _vo(scene, "cuda"), _vo(scene, "cuda")
+    before = None
+    for c in range(CHUNKS):
+        vo.advance(*_chunk(scene, c))
+        copies[False].clear()                 # the graph's eager chunk
+        twin._advance_eager(*_chunk(scene, c))
+        torch.cuda.synchronize()
+        if c == 0:
+            continue
+        captured, eager = copies[True], copies[False]
+        assert len(captured) == len(eager) > 0, (len(captured), len(eager))
+        for i, (a, b) in enumerate(zip(captured, eager)):
+            assert torch.equal(a, b), f"chunk {c}, pose LM call {i}"
+        now = [t.clone() for t in captured]
+        if before is not None:
+            assert any(not torch.equal(a, b) for a, b in zip(before, now))
+        before = now
+    assert len(vo._chunks[0].graphs.buckets()) == 1

@@ -42,12 +42,11 @@ CFG = tvo.DeviceVOConfig(width=W, height=H, lm_capacity=128,
                          loop_min_gap=2, loop_points=16)
 
 
-@pytest.fixture(scope="module")
-def scene():
-    """Square loops of rendered landmark patches (seeds 30, 31), exact
-    odometry, start poses."""
+def make_scene(chunks=CHUNKS):
+    """Square loops of rendered landmark patches (seeds 30, 31) for
+    ``chunks`` chunks, exact odometry, start poses."""
     cam = default_camera(W, H)
-    n = T * CHUNKS
+    n = T * chunks
     worlds = [make_world(n_frames=n, n_landmarks=500, seed=30 + s,
                          trajectory="loop", lap_frames=32, camera=cam)
               for s in range(S)]
@@ -58,6 +57,11 @@ def scene():
     deltas = np.stack([exact_odometry(w, n) for w in worlds])
     p0 = np.stack([w.poses_cw[0] for w in worlds]).astype(np.float32)
     return dict(cam=cam, images=images, deltas=deltas, p0=p0)
+
+
+@pytest.fixture(scope="module")
+def scene():
+    return make_scene()
 
 
 def _chunk(scene, c):
@@ -389,10 +393,10 @@ def test_replay_bit_equal_to_eager_on_card(scene):
         _assert_equal(out, want, f"chunk {c} outputs")
         _assert_equal(vo.last_snaps, twin.last_snaps, f"chunk {c} snaps")
         _assert_equal(vo.state, twin.state, f"chunk {c} state")
-    shape = next(iter(vo._chunks[0]._shapes.values()))
-    assert shape.graph is not None and shape.launches["k1.launch"] == T
-    assert twin._chunks[0]._shapes and all(
-        b.graph is None for b in twin._chunks[0]._shapes.values())
+    (shape,) = vo._chunks[0].graphs.buckets()
+    assert shape["graph"] and shape["launches"]["k1.launch"] == T
+    assert twin._chunks[0].graphs.buckets() and not any(
+        b["graph"] for b in twin._chunks[0].graphs.buckets())
 
 
 @pytest.mark.cuda

@@ -1,6 +1,7 @@
 """The interactive extraction's one-program dispatch
-(``ops/frontend.ExtractGraphCache``): every ``OrbExtractor`` of one
-geometry (device, stream, ``FrontendSpec``, slots) shares one entry; its
+(``ops/frontend.extraction`` over ``EXTRACT_GRAPHS``): every
+``OrbExtractor`` of one geometry (device, stream, ``FrontendSpec``, slots)
+shares one entry; its
 first call runs ``extract`` on fresh tensors, its later calls copy the image
 and the tracked points into the entry's fixed buffers and, on a card,
 replay the entry's CUDA graph (on the CPU they run ``extract`` eagerly on
@@ -11,8 +12,8 @@ frames whose tracked points change (some frames have none) equals direct
 ``extract`` and ``hamming_argmin`` calls, collected at once or prefetched;
 the key separates slot counts and image sizes and is shared by two
 extractors of one geometry; prefetches of two geometries interleaved
-collect what direct calls give; the counters and the timer count one eager
-run at first sight and buffer runs after it.
+collect what direct calls give. The counters and the timer's names, for
+the three graph programs at once, are in ``tests/test_torch_graphs.py``.
 
 The ``cuda`` tests import no JAX and run on the card:
 
@@ -32,7 +33,6 @@ import torch
 from slam_tpu_torch.ops import frontend as F
 from slam_tpu_torch.ops.hamming_argmin import hamming_argmin
 from slam_tpu_torch.params import Parameters, ParametersSlam, StaticSettings
-from slam_tpu_torch.utils import timer
 from slam_tpu_torch.utils.synthetic import (default_camera, make_world,
                                             render_frame)
 
@@ -119,9 +119,9 @@ def test_buffer_path_equals_direct_calls(cache, frames, collect):
         if xy is not None:
             np.testing.assert_array_equal(got.track_ids[:len(ids)], ids)
         assert got.valid.sum() > 100
-    assert cache.entries() == [dict(width=W, height=H, slots=ex.num_slots,
-                                    calls=len(frames), graph=False,
-                                    capture_seconds=None)]
+    assert cache.buckets() == [dict(width=W, height=H, slots=ex.num_slots,
+                                    calls=len(frames), covers=0, graph=False,
+                                    launches={}, capture_seconds=None)]
 
 
 def test_key_separates_slots_and_sizes_and_is_shared(cache):
@@ -140,7 +140,7 @@ def test_key_separates_slots_and_sizes_and_is_shared(cache):
                       (again, room)):
         ex.detect_and_extract(frame)
     assert [(e["width"], e["height"], e["slots"], e["calls"])
-            for e in cache.entries()] == [(752, 480, 1128, 2),
+            for e in cache.buckets()] == [(752, 480, 1128, 2),
                                           (752, 480, 1256, 1),
                                           (W, H, other.num_slots, 1)]
 
@@ -159,34 +159,7 @@ def test_interleaved_prefetches_of_two_geometries(cache, frames):
     for ex, i, frame, xy in issued:
         _assert_equal(ex.detect_and_extract(None, key=i),
                       _direct(ex, frame, xy), f"slots {ex.num_slots}, {i}")
-    assert [e["calls"] for e in cache.entries()] == [4, 4]
-
-
-def test_counters_count_one_eager_run_then_buffer_runs(cache, frames):
-    ex = F.OrbExtractor(_settings(vocab=0), W, H, max_tracked=16,
-                        device="cpu")
-    stats = timer.enable_timing()
-    try:
-        ex.detect_and_extract(frames[0])
-        (entry,) = cache._entries.values()
-        assert entry.inputs is None          # the first call's own tensors
-        for i, frame in enumerate(frames[1:4], 1):
-            ex.detect_and_extract(frame, *_tracked(i, ex.max_tracked))
-            image, txy, tvalid = entry.inputs
-            np.testing.assert_array_equal(image.numpy(), frame)
-            xy, _ = _tracked(i, ex.max_tracked)
-            assert int(tvalid.sum()) == (0 if xy is None else len(xy))
-    finally:
-        timer.disable_timing()
-    c = cache.counters()
-    assert (c["entries"], c["eager_runs"], c["captures"], c["replays"]) == \
-        (1, 4, 0, 0)
-    assert stats.counts["extract.eager"] == stats.counts[
-        "extract.extraction"] == ex.extractions == 4
-    assert "extract.replay" not in stats.counts
-    assert "extract.capture" not in stats.counts
-    cache.clear()
-    assert cache.counters()["eager_runs"] == 0 and cache.entries() == []
+    assert [e["calls"] for e in cache.buckets()] == [4, 4]
 
 
 # ---------------------------------------------------------------------------
@@ -236,7 +209,7 @@ def test_replays_bit_equal_to_eager_for_both_room_extractors_on_card(
                           f"frame {i}, slots {ex.num_slots}")
         prev = got.pts[got.valid][:256]
     c = cache.counters()
-    assert (c["entries"], c["eager_runs"], c["captures"], c["replays"]) == \
+    assert (c["buckets"], c["eager_runs"], c["captures"], c["replays"]) == \
         (2, 2, 2, 2 * 23)
     assert sorted(set(launches)) == [(1128, 8), (1256, 8)]
 

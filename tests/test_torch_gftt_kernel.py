@@ -439,8 +439,8 @@ def test_chunk_replay_counts_its_launches_on_card(monkeypatch):
                 assert not bad, f"chunk {c} against the {d}: {bad}"
     finally:
         timer.disable_timing()
-    shape = next(iter(graphed._chunks[0]._shapes.values()))
-    assert shape.graph is not None and shape.launches["detect.launch"] == t
+    (shape,) = graphed._chunks[0].graphs.buckets()
+    assert shape["graph"] and shape["launches"]["detect.launch"] == t
 
 
 @pytest.mark.cuda

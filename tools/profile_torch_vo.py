@@ -137,7 +137,7 @@ def main():
         top_device_rows=top,
         replay=dict(wall_s=replay_walls, wall_median_s=replay_wall,
                     keyframes_per_s=frames / replay_wall,
-                    capture_s=graph._chunks[0].capture_seconds,
+                    capture_s=graph._chunks[0].graphs.capture_seconds,
                     stage_device_s=stages, stamped_s=stamped,
                     profiled_wall_s=rprofiled_wall,
                     device_busy_ms=ract["busy_ms"],
