@@ -10,7 +10,11 @@ vocabulary's and ragged edge shapes, one launch per call) and times it
 beside its bound; checks the GFTT detection kernel bit for bit against its
 plain version at every level of the fleet's and both live cells'
 geometries, times both beside its bound and counts the chunk graph's nodes
-with either; drives the port's main path at the device-SLAM bench's
+with either; checks the ORB kernel (angles and descriptors of a frame
+step's keypoints) bit for bit against its plain version at the same
+geometries, times both beside its bound, splits the fleet's front-end step
+by part, counts the chunk graph's nodes with either and holds the fleet
+geometry's chunk replays to the eager twin; drives the port's main path at the device-SLAM bench's
 settings twice: ``slam_tpu_torch.pipeline.device_vo.BatchedDeviceVO`` over
 64 frames of exact odometry (each chunk a replay of its captured CUDA
 graph), the same frames again with every chunk's outputs, snapshot rows
@@ -154,13 +158,15 @@ def _launches_reset():
 
 def _gftt_per_extraction(extractions, captures0):
     """GFTT's launches since :func:`_launches_reset`, held equal to the
-    extractions plus the extraction graphs captured since: a capture runs
-    the extraction once on a side stream before it records it."""
+    extractions plus the extraction graphs captured since (a capture runs
+    the extraction once on a side stream before it records it), and ORB's
+    equal to GFTT's: both launch once an extraction."""
     from slam_tpu_torch.kernels import launches
     from slam_tpu_torch.ops.frontend import EXTRACT_GRAPHS
 
     n, captured = launches.GFTT.total, EXTRACT_GRAPHS.captures - captures0
     assert n == extractions + captured > 0, (n, extractions, captured)
+    assert launches.ORB.total == n, (launches.ORB.total, n)
     return n
 
 
@@ -207,7 +213,7 @@ def build_kernels():
     t0 = time.perf_counter()
     with ThreadPoolExecutor() as pool:
         list(pool.map(load_library, ["hamming_argmin.cu", "gftt_peaks.cu",
-                                     str(PEAK_SOURCE)]))
+                                     "orb_describe.cu", str(PEAK_SOURCE)]))
     print(f"kernels built in {time.perf_counter() - t0:.1f} s")
 
 
@@ -426,7 +432,7 @@ def phase_main_path(cam, worlds, images, deltas):
     outs = run(vo, FRAMES // CHUNK)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    k1, gftt = launches.K1.total, launches.GFTT.total
+    k1, gftt, orb = launches.K1.total, launches.GFTT.total, launches.ORB.total
 
     cat = lambda k: np.concatenate([getattr(o, k).cpu().numpy() for o in outs],
                                    axis=1)
@@ -464,8 +470,8 @@ def phase_main_path(cam, worlds, images, deltas):
     print(f"revisits flagged: {int(flagged.sum())} frames; best unflagged "
           f"second-lap score {top.max():.4f} (gate {cfg.loop_min_score})")
 
-    # K1 and GFTT ran once per frame for all S sequences
-    assert k1 == gftt == FRAMES, (k1, gftt)
+    # K1, GFTT and ORB ran once per frame for all S sequences
+    assert k1 == gftt == orb == FRAMES, (k1, gftt, orb)
     fps = S * FRAMES / wall
     return dict(wall=wall, fps=fps, launches=k1, gftt_launches=gftt)
 
@@ -553,8 +559,9 @@ def phase_chunk_graph(cam, worlds, images, deltas, smi):
     replay_s = [timed(lambda: graph.advance(*chunk(c)))[1] for c in range(n)]
     # one launch of each a frame step, counted at capture and added per
     # replay
-    assert launches.K1.total == launches.GFTT.total == FRAMES, (
-        launches.K1.total, launches.GFTT.total)
+    assert launches.K1.total == launches.GFTT.total == launches.ORB.total \
+        == FRAMES, (launches.K1.total, launches.GFTT.total,
+                    launches.ORB.total)
     replay_peak = torch.cuda.max_memory_allocated()
     reserved = torch.cuda.memory_reserved()
     torch.cuda.reset_peak_memory_stats()
@@ -653,7 +660,8 @@ def phase_device_slam(cam, worlds, images, deltas, smi):
         slam.finish()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        return slam, wall, (launches.K1.total, launches.GFTT.total), times
+        return slam, wall, (launches.K1.total, launches.GFTT.total,
+                            launches.ORB.total), times
 
     session(True)                             # warm-up: CUDA init, caches
     slam, wall, counts, times = session(True)
@@ -670,8 +678,9 @@ def phase_device_slam(cam, worlds, images, deltas, smi):
     torch.cuda.synchronize()
     vo_wall = time.perf_counter() - t0
 
-    # K1 and GFTT ran once per frame for all S sequences, in both sessions
-    assert counts == control_counts == (SLAM_FRAMES, SLAM_FRAMES), (
+    # K1, GFTT and ORB ran once per frame for all S sequences, in both
+    # sessions
+    assert counts == control_counts == (SLAM_FRAMES,) * 3, (
         counts, control_counts)
     accepted = [e for e in slam.closures if e.accepted]
     reasons = {}
@@ -1488,7 +1497,8 @@ def phase_device_vo_room(smi):
                    progress=False, device="cuda")
     k1 = launches.K1.total                   # no retrieval: loop_every 0
     gftt = launches.GFTT.total
-    assert gftt == CHUNK + DVO_FRAMES // CHUNK * CHUNK, gftt
+    assert gftt == launches.ORB.total == CHUNK + DVO_FRAMES // CHUNK * CHUNK, (
+        gftt, launches.ORB.total)
     print(f"device VO on the room, {DVO_SEQS} x {res['frames']} frames at "
           f"752x480, sigma {DVO_DRIFT}, window {DVO_WINDOW}: ATE "
           f"{res['ate_vo_m_mean']:.6f} m vs odometry "
@@ -1610,11 +1620,13 @@ def _graph_nodes(graph) -> int:
     return n.value
 
 
-def _chunk_graph_nodes(detect, w, h, seqs):
+def _chunk_graph_nodes(w, h, seqs, detect, describe):
     """Nodes of the chunk graph of ``seqs`` sequences at ``w`` x ``h``
     (the main path's settings otherwise), chunks of 8, with the GFTT
-    detection ``detect`` in place of ``ops/detector.gftt_peaks``."""
+    detection ``detect`` in place of ``ops/detector.gftt_peaks`` and the
+    ORB description ``describe`` in place of ``ops/orb.orb_features``."""
     from slam_tpu_torch.ops import detector as det
+    from slam_tpu_torch.ops import orb
     from slam_tpu_torch.pipeline.device_vo import (BatchedDeviceVO,
                                                    DeviceVOConfig)
     from slam_tpu_torch.utils.synthetic import default_camera
@@ -1626,14 +1638,15 @@ def _chunk_graph_nodes(detect, w, h, seqs):
     images = np.random.default_rng(5).integers(
         0, 256, (seqs, CHUNK, h, w)).astype(np.uint8)
     odom = np.tile(np.eye(4, dtype=np.float32), (seqs, CHUNK, 1, 1))
-    kept, graph_cls = det.gftt_peaks, torch.cuda.CUDAGraph
-    det.gftt_peaks = detect
+    kept = det.gftt_peaks, orb.orb_features, torch.cuda.CUDAGraph
+    graph_cls = kept[2]
+    det.gftt_peaks, orb.orb_features = detect, describe
     torch.cuda.CUDAGraph = lambda: graph_cls(keep_graph=True)
     try:
         vo.advance(images, odom)                   # eager
         vo.advance(images, odom)                   # captured, then replayed
     finally:
-        det.gftt_peaks, torch.cuda.CUDAGraph = kept, graph_cls
+        det.gftt_peaks, orb.orb_features, torch.cuda.CUDAGraph = kept
     torch.cuda.synchronize()
     (shape,) = vo._chunks[0].graphs._entries.values()
     return _graph_nodes(shape.graph)
@@ -1669,9 +1682,10 @@ def _frontend_split(images):
     """Device ms of one front-end step on (S, H, W) uint8 card ``images``
     at the main path's settings, by part: the pyramid, GFTT detection (the
     kernel, and the plain version it replaced), the budget sort, ORB
-    angles and descriptors (tracked slots and every level), the whole
-    ``extract`` with the kernel and with the plain detection; each a graph
-    replay."""
+    angles and descriptors of the tracked slots and every level (the
+    kernel, and the plain version it replaced), the whole ``extract`` with
+    both kernels, with the plain detection and with the plain ORB; each a
+    graph replay."""
     from slam_tpu_torch.ops import detector as det
     from slam_tpu_torch.ops import orb
     from slam_tpu_torch.ops.frontend import _operators, extract
@@ -1689,23 +1703,21 @@ def _frontend_split(images):
     lvls = [lvl for lvl, b in enumerate(spec.budgets) if b > 0]
     mds = [spec.min_dists[lvl] for lvl in lvls]
     maps = det.gftt_peaks([levels[lvl] for lvl in lvls], mds)
-    picks = [det.take_best(m, spec.budgets[lvl])[0]
-             for lvl, m in zip(lvls, maps)]
     txy = torch.zeros(seqs, N_TRACKED, 2, device=images.device)
     tv = torch.zeros(seqs, N_TRACKED, dtype=torch.bool, device=images.device)
     lk = spec.lk_level
+    groups = [(levels[lk], blurred[lk], txy)] + [
+        (levels[lvl], blurred[lvl], det.take_best(m, spec.budgets[lvl])[0])
+        for lvl, m in zip(lvls, maps)]
 
-    def orb_all():
-        orb.compute_orb(levels[lk], blurred[lk], txy)
-        for lvl, xy in zip(lvls, picks):
-            orb.compute_orb(levels[lvl], blurred[lvl], xy)
-
-    def extract_plain():
-        kept, det.gftt_peaks = det.gftt_peaks, det.gftt_peaks_plain
+    def extract_with(**plain):
+        kept = det.gftt_peaks, orb.orb_features
+        det.gftt_peaks = plain.get("detect", det.gftt_peaks)
+        orb.orb_features = plain.get("describe", orb.orb_features)
         try:
             extract(images, txy, tv, spec)
         finally:
-            det.gftt_peaks = kept
+            det.gftt_peaks, orb.orb_features = kept
 
     parts = dict(
         pyramid=lambda: build_pyramid(x, rs, bs),
@@ -1714,9 +1726,13 @@ def _frontend_split(images):
             [levels[lvl] for lvl in lvls], mds),
         select=lambda: [det.take_best(m, spec.budgets[lvl])
                         for lvl, m in zip(lvls, maps)],
-        orb=orb_all,
+        orb=lambda: orb.orb_features(groups),
+        orb_plain=lambda: orb.orb_features_plain(groups),
         extract=lambda: extract(images, txy, tv, spec),
-        extract_plain=extract_plain)
+        extract_plain_detect=lambda: extract_with(
+            detect=det.gftt_peaks_plain),
+        extract_plain_orb=lambda: extract_with(
+            describe=orb.orb_features_plain))
     split = {k: graph_ms(fn) for k, fn in parts.items()}
     split["rest"] = split["extract"] - sum(
         split[k] for k in ("pyramid", "detect", "select", "orb"))
@@ -1738,9 +1754,10 @@ def phase_gftt(smi):
     the 20, so host launches do not count) of kernel and plain version,
     beside the least time: each pixel read once and written once in
     float32 at 3.35 TB/s. Then the nodes of the fleet geometry's chunk
-    graph with the plain detection (the parent's) and with the kernel."""
+    graph with the plain detection and with the kernel."""
     from slam_tpu_torch.kernels import launches
     from slam_tpu_torch.ops import detector as det
+    from slam_tpu_torch.ops import orb
     from slam_tpu_torch.ops.frontend import min_distances
     from slam_tpu_torch.ops.pyramid import build_pyramid, device_operators
     from slam_tpu_torch.params import Parameters, ParametersSlam, \
@@ -1789,6 +1806,146 @@ def phase_gftt(smi):
               f"{100 * row['bound_ms'] / row['ms']:.1f} % of the bound; on "
               f"{smi}")
     w, h, seqs = GFTT_GEOMETRIES[0]
+    nodes = dict(
+        plain=_chunk_graph_nodes(w, h, seqs, det.gftt_peaks_plain,
+                                 orb.orb_features),
+        kernel=_chunk_graph_nodes(w, h, seqs, det.gftt_peaks,
+                                  orb.orb_features))
+    print(f"chunk graph at {w}x{h} S={seqs}, chunks of {CHUNK}: "
+          f"{nodes['plain']} nodes with the plain detection, "
+          f"{nodes['kernel']} with the kernel (ORB's kernel in both)")
+    rows["chunk_graph_nodes"] = nodes
+    return rows
+
+
+# (width, height, images, maxKeypoints, tracked slots): the fleet's step
+# (the device VO's 8 tracked slots), the room's live extraction (the
+# Mapper's 256 tracked slots and the default 1,000 keypoints) and the
+# street's
+ORB_GEOMETRIES = {"fleet": (752, 480, 8, 600, 8),
+                  "room": (752, 480, 1, 1000, 256),
+                  "street": (1241, 376, 1, 1000, 256)}
+# bytes a keypoint: its 31 x 31 moment window and 512 samples read once in
+# float32, its angle and 8 words written once
+ORB_KEYPOINT_BYTES = (31 * 31 + 512) * 4 + 4 + 8 * 4
+
+
+def _orb_groups(w, h, seqs, keypoints, n_tracked):
+    """A frame step's groups as ``extract_from_pyramid`` hands them to
+    ``ops/orb.orb_features``, on rendered frames: tracked points at the LK
+    level (inside, on and beyond the border), then every level's best
+    keypoints; and the step's spec."""
+    from slam_tpu_torch.ops import detector as det
+    from slam_tpu_torch.ops.frontend import _operators
+    from slam_tpu_torch.ops.pyramid import build_pyramid
+    from slam_tpu_torch.params import Parameters, ParametersSlam, \
+        StaticSettings
+    from slam_tpu_torch.pipeline.device_vo import _frontend_spec
+    from slam_tpu_torch.utils.synthetic import (default_camera, make_world,
+                                                render_frame)
+
+    spec = _frontend_spec(StaticSettings(Parameters(slam=ParametersSlam(
+        maxKeypoints=keypoints))), w, h)
+    cam = default_camera(w, h)
+    patches = np.random.default_rng(31).integers(
+        40, 255, (500, 11, 11)).astype(np.uint8)
+    frames = np.stack([render_frame(
+        make_world(n_frames=1, n_landmarks=500, seed=40 + i,
+                   trajectory="loop", lap_frames=LAP, camera=cam),
+        patches, 0, w, h) for i in range(seqs)])
+    _, rs, bs = _operators(spec, torch.device("cuda"))
+    levels, blurred = build_pyramid(torch.from_numpy(frames).cuda().float(),
+                                    rs, bs)
+    lk = spec.lk_level
+    scale = float(np.float32(spec.scale_factors[lk]))
+    txy = np.random.default_rng(7).uniform(
+        [-40.0, -40.0], [w + 40.0, h + 40.0], (seqs, n_tracked, 2))
+    groups = [(levels[lk], blurred[lk], torch.round(
+        torch.from_numpy(txy.astype(np.float32)).cuda() / scale))]
+    lvls = [lvl for lvl, b in enumerate(spec.budgets) if b > 0]
+    maps = det.gftt_peaks([levels[lvl] for lvl in lvls],
+                          [spec.min_dists[lvl] for lvl in lvls])
+    for lvl, m in zip(lvls, maps):
+        groups.append((levels[lvl], blurred[lvl],
+                       det.take_best(m, spec.budgets[lvl])[0]))
+    return groups, spec
+
+
+def _chunk_replay_equal(w, h, seqs, chunks=3):
+    """Chunks of ``seqs`` rendered-noise sequences at ``w`` x ``h`` (the
+    main path's settings otherwise): each replay of the chunk graph (the
+    first chunk eager, the second captured) equal to the eager twin in
+    every output; returns the chunks compared."""
+    from slam_tpu_torch.pipeline.device_vo import (BatchedDeviceVO,
+                                                   DeviceVOConfig)
+    from slam_tpu_torch.utils.synthetic import default_camera
+
+    cam = default_camera(w, h)
+    cfg = DeviceVOConfig(**dict(CFG, width=w, height=h))
+    graphed, twin = (BatchedDeviceVO(cfg, batch=seqs, camera=cam,
+                                     device="cuda") for _ in range(2))
+    p0 = np.tile(np.eye(4, dtype=np.float32), (seqs, 1, 1))
+    graphed.reset(p0)
+    twin.reset(p0)
+    rng = np.random.default_rng(8)
+    odom = np.tile(np.eye(4, dtype=np.float32), (seqs, CHUNK, 1, 1))
+    for c in range(chunks):
+        images = rng.integers(0, 256, (seqs, CHUNK, h, w)).astype(np.uint8)
+        got = graphed.advance(images, odom)
+        want = twin._advance_eager(images, odom)
+        bad = [f for f, a, b in zip(got._fields, got, want)
+               if not torch.equal(a.cpu(), b.cpu())]
+        assert not bad, f"chunk {c}: replay against the eager twin {bad}"
+    return chunks
+
+
+def phase_orb(smi):
+    """ORB orientation and descriptors (``csrc/orb_describe.cu``, one
+    launch for the tracked slots and every level of a frame step) at the
+    fleet's and both live cells' geometries, on rendered frames: angles
+    (as bit patterns) and descriptors bit-equal to the plain version on
+    the card, one launch a call, and the device time of 20 calls after 3
+    warm-ups (CUDA events around one CUDA-graph replay of the 20) of
+    kernel and plain version, beside the least time: each keypoint's
+    moment window and samples read once and its angle and words written
+    once at 3.35 TB/s. Then the front-end step's split by part at the
+    fleet's geometry, the nodes of its chunk graph with the plain ORB and
+    with the kernel, and its chunk replays held to the eager twin."""
+    from slam_tpu_torch.kernels import launches
+    from slam_tpu_torch.ops import detector as det
+    from slam_tpu_torch.ops import orb
+
+    rows = {}
+    for name, (w, h, seqs, keypoints, n_tracked) in ORB_GEOMETRIES.items():
+        groups, spec = _orb_groups(w, h, seqs, keypoints, n_tracked)
+        before = launches.ORB.total
+        got = orb.orb_features(groups)
+        torch.cuda.synchronize()
+        per_step = launches.ORB.total - before
+        assert per_step == 1, per_step
+        want = orb.orb_features_plain(groups)
+        bad_a = int((got[0].view(torch.int32)
+                     != want[0].view(torch.int32)).sum())
+        bad_d = int((got[1] != want[1]).any(-1).sum())
+        assert bad_a == bad_d == 0, f"{name}: {bad_a} angles, {bad_d} " \
+            f"descriptors differ"
+        slots = got[0].shape[1]
+        n_kp = seqs * slots
+        row = dict(ms=graph_ms(lambda: orb.orb_features(groups)),
+                   plain_ms=graph_ms(lambda: orb.orb_features_plain(groups)),
+                   bound_ms=n_kp * ORB_KEYPOINT_BYTES / BYTES_PER_S * 1e3,
+                   keypoints=n_kp, groups=len(groups),
+                   launches_per_step=per_step)
+        rows[name] = row
+        print(f"orb_describe {name} {w}x{h} S={seqs}: {len(groups)} groups, "
+              f"{slots} slots a frame, bit-equal to the plain version "
+              f"(angles and descriptors), {per_step} launch a step; kernel "
+              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({n_kp} keypoints x "
+              f"{ORB_KEYPOINT_BYTES} B at 3.35 TB/s) = "
+              f"{100 * row['bound_ms'] / row['ms']:.1f} % of the bound; on "
+              f"{smi}")
+    w, h, seqs = 752, 480, 8
     images = torch.from_numpy(np.random.default_rng(6).integers(
         0, 256, (seqs, h, w)).astype(np.uint8)).cuda()
     split = _frontend_split(images)
@@ -1796,12 +1953,19 @@ def phase_gftt(smi):
           f"replays): " + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
           + f"; on {smi}")
     rows["frontend_split_ms"] = split
-    nodes = dict(plain=_chunk_graph_nodes(det.gftt_peaks_plain, w, h, seqs),
-                 kernel=_chunk_graph_nodes(det.gftt_peaks, w, h, seqs))
+    nodes = dict(
+        plain=_chunk_graph_nodes(w, h, seqs, det.gftt_peaks,
+                                 orb.orb_features_plain),
+        kernel=_chunk_graph_nodes(w, h, seqs, det.gftt_peaks,
+                                  orb.orb_features))
     print(f"chunk graph at {w}x{h} S={seqs}, chunks of {CHUNK}: "
-          f"{nodes['plain']} nodes with the plain detection, "
-          f"{nodes['kernel']} with the kernel")
+          f"{nodes['plain']} nodes with the plain ORB, {nodes['kernel']} "
+          f"with the kernel (GFTT's kernel in both)")
     rows["chunk_graph_nodes"] = nodes
+    rows["chunk_replays_equal"] = _chunk_replay_equal(w, h, seqs)
+    print(f"chunk graph at {w}x{h} S={seqs}: "
+          f"{rows['chunk_replays_equal']} chunks replayed bit-equal to the "
+          f"eager twin")
     return rows
 
 
@@ -1813,6 +1977,7 @@ def main():
     build_kernels()
     kernel = phase_kernel(smi, mma_peaks(smi))
     gftt = phase_gftt(smi)
+    orb = phase_orb(smi)
     cam, worlds, images, deltas = make_inputs()
     main_path = phase_main_path(cam, worlds, images, deltas)
     print(f"main path: {S} sequences x {FRAMES} frames at {WIDTH}x{HEIGHT} in "
@@ -1866,7 +2031,11 @@ def main():
         "tracker_launches": tracker["gftt_launches"],
         "sessions_launches": sessions["gftt_launches"],
         "tools_launches": (euroc["gftt_launches"] + dvo["gftt_launches"]
-                           + kitti["gftt_launches"])}]}))
+                           + kitti["gftt_launches"])}, {
+        "name": "orb_describe", "route": "cuda",
+        "source": "slam_tpu_torch/csrc/orb_describe.cu", "replaces": None,
+        "launches": main_path["gftt_launches"], "library_ms": None,
+        "geometries": orb}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -41,7 +41,8 @@ class Counter:
 
 K1 = Counter("k1.launch")           # csrc/hamming_argmin.cu
 GFTT = Counter("detect.launch")     # csrc/gftt_peaks.cu
-COUNTERS = (K1, GFTT)
+ORB = Counter("orb.launch")         # csrc/orb_describe.cu
+COUNTERS = (K1, GFTT, ORB)
 
 
 def reset() -> None:

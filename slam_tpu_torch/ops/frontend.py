@@ -87,10 +87,12 @@ def extract_from_pyramid(levels, blurred, sizes, tracked_xy: torch.Tensor,
                          tracked_valid: torch.Tensor, spec: FrontendSpec
                          ) -> Features:
     """Detection, orientation and descriptors on a built pyramid (lists of
-    (S, H_l, W_l) level and blurred-level images)."""
+    (S, H_l, W_l) level and blurred-level images): every level's keypoints
+    are taken first, then one :func:`orb.orb_features` call describes the
+    tracked and the detected slots together."""
     S = levels[0].shape[0]
     dev = levels[0].device
-    out_pts, out_oct, out_ang, out_desc, out_valid = [], [], [], [], []
+    out_pts, out_oct, out_valid = [], [], []
 
     # tracked keypoints at the fixed LK level
     lk = spec.lk_level
@@ -101,12 +103,9 @@ def extract_from_pyramid(levels, blurred, sizes, tracked_xy: torch.Tensor,
     margin = ORB_PATCH_RADIUS
     t_ok = (tracked_valid & (xi >= margin) & (yi >= margin)
             & (xi < lk_w - margin) & (yi < lk_h - margin))
-    t_ang, t_desc = orb.compute_orb(levels[lk], blurred[lk],
-                                    torch.stack([xi, yi], dim=-1))
+    groups = [(levels[lk], blurred[lk], torch.stack([xi, yi], dim=-1))]
     out_pts.append(tracked_xy)
     out_oct.append(torch.full(t_ok.shape, lk, dtype=torch.int32, device=dev))
-    out_ang.append(t_ang)
-    out_desc.append(t_desc)
     out_valid.append(t_ok)
 
     # detected keypoints per level; GFTT detects on every level at once
@@ -118,19 +117,17 @@ def extract_from_pyramid(levels, blurred, sizes, tracked_xy: torch.Tensor,
     else:
         maps = det.gftt_peaks([levels[lvl] for lvl in lvls], mds)
     for lvl, masked in zip(lvls, maps):
-        lvl_img, budget = levels[lvl], spec.budgets[lvl]
+        budget = spec.budgets[lvl]
         xy, _, valid = det.take_best(masked, budget)
-        ang, desc = orb.compute_orb(lvl_img, blurred[lvl], xy)
+        groups.append((levels[lvl], blurred[lvl], xy))
         out_pts.append(xy * float(np.float32(spec.scale_factors[lvl])))
         out_oct.append(torch.full((S, budget), lvl, dtype=torch.int32,
                                   device=dev))
-        out_ang.append(ang)
-        out_desc.append(desc)
         out_valid.append(valid)
 
-    return Features(torch.cat(out_pts, 1), torch.cat(out_oct, 1),
-                    torch.cat(out_ang, 1), torch.cat(out_desc, 1),
-                    torch.cat(out_valid, 1))
+    angle, desc = orb.orb_features(groups)
+    return Features(torch.cat(out_pts, 1), torch.cat(out_oct, 1), angle,
+                    desc, torch.cat(out_valid, 1))
 
 
 def _extract_frame(image: torch.Tensor, tracked_xy: torch.Tensor,

@@ -6,6 +6,8 @@ with the reference's fast cos/sin and rounded half-to-even, 256 bits packed
 LSB-first into eight 32-bit words (carried as int32 bit patterns). The JAX
 package gathers patches and samples with one-hot matmuls, a TPU workaround;
 here they are plain index gathers. Keypoints carry a leading batch dimension.
+On a card, :func:`orb_features` computes every group of keypoints of a frame
+step in one launch of the hand-written kernel ``csrc/orb_describe.cu``.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from slam_tpu_torch.kernels import launches
 from slam_tpu_torch.ops.orb_pattern import ORB_PATTERN
 
 HALF_PATCH = 15          # fast_half_patch_size_
@@ -187,4 +190,37 @@ def compute_orb(level_img: torch.Tensor, blurred_img: torch.Tensor,
     q_blur = torch.round(torch.clamp(blurred_img, 0.0, 255.0))
     angles = ic_angles(extract_patches(q_img, xy))
     desc = descriptors_from_patches(extract_patches(q_blur, xy), angles)
+    return angles, desc
+
+
+def orb_features_plain(groups) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of :func:`orb_features`: :func:`compute_orb` a
+    group, concatenated along the slots."""
+    if not groups:
+        raise ValueError("orb_features: no group")
+    angles, desc = zip(*(compute_orb(*g) for g in groups))
+    return torch.cat(angles, 1), torch.cat(desc, 1)
+
+
+def orb_features(groups) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Angles and descriptors of one frame step's keypoints: groups of
+    (level, blurred level, (S, N_g, 2) keypoints), each as
+    :func:`compute_orb` takes them -> (S, N) float32 degrees and (S, N, 8)
+    int32, N the groups' N_g summed, slots in group order.
+
+    CPU tensors (fake ones too) take the plain version; CUDA tensors launch
+    the hand-written kernel ``csrc/orb_describe.cu`` once for all groups
+    (counted in ``kernels/launches.ORB``, the timer's ``orb.launch``) or
+    raise. The kernel replaces no Pallas kernel (the JAX package leaves
+    orientation and descriptors to XLA, K3-K6); it is bound by latency and
+    gathers, one warp a keypoint reading its moment circle and its 512
+    samples once, bit-equal to the plain version."""
+    if not groups:
+        raise ValueError("orb_features: no group")
+    if groups[0][0].device.type == "cpu":
+        return orb_features_plain(groups)
+    from slam_tpu_torch.kernels import orb_describe as kernel
+
+    angles, desc, launched = kernel.launch(groups)
+    launches.ORB.add(launched)
     return angles, desc

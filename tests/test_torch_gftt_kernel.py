@@ -226,29 +226,35 @@ def test_capture_takes_its_launches_back_out_and_replay_adds_them():
     the timer; launches of another thread meanwhile stay counted and are
     not the capture's; each replay adds the recorded launches again."""
     totals = [c.total for c in launches.COUNTERS]
+    names = [c.name for c in launches.COUNTERS]
+    assert names == ["k1.launch", "detect.launch", "orb.launch"]
     stats = timer.enable_timing()
     try:
         with launches.capture() as recorded:
             launches.K1.add(2)
             launches.GFTT.add(3)
+            launches.ORB.add(1)
             t = threading.Thread(target=launches.GFTT.add, args=(7,))
             t.start()
             t.join(timeout=10)
-        assert recorded == {"k1.launch": 2, "detect.launch": 3}
+        assert not t.is_alive()
+        assert recorded == {"k1.launch": 2, "detect.launch": 3,
+                            "orb.launch": 1}
         assert [c.total for c in launches.COUNTERS] == [totals[0],
-                                                        totals[1] + 7]
-        assert (stats.counts["k1.launch"], stats.counts["detect.launch"]) \
-            == (0, 7)
+                                                        totals[1] + 7,
+                                                        totals[2]]
+        assert [stats.counts[n] for n in names] == [0, 7, 0]
         for _ in range(2):
             launches.replay(recorded)
         assert [c.total for c in launches.COUNTERS] == [totals[0] + 4,
-                                                        totals[1] + 13]
-        assert (stats.counts["k1.launch"], stats.counts["detect.launch"]) \
-            == (4, 13)
+                                                        totals[1] + 13,
+                                                        totals[2] + 2]
+        assert [stats.counts[n] for n in names] == [4, 13, 2]
     finally:
         timer.disable_timing()
         launches.K1.add(-4)
         launches.GFTT.add(-13)
+        launches.ORB.add(-2)
     assert [c.total for c in launches.COUNTERS] == totals
 
 

@@ -85,7 +85,7 @@ class _Extract:
         self.ex = F.OrbExtractor(X._settings(), X.W, X.H,
                                  max_tracked=16, device=device)
         self.frames = X._frames(CALLS)
-        self.recorded = {"detect.launch": 1}
+        self.recorded = {"detect.launch": 1, "orb.launch": 1}
 
     def call(self, i):
         return self.ex.detect_and_extract(
@@ -106,7 +106,8 @@ class _Extract:
 
     def ran(self, i):
         # the capturing call runs the extraction once on the side stream
-        return {"detect.launch": 2 if i == 1 else 1, "k1.launch": 1}
+        return {"detect.launch": 2 if i == 1 else 1,
+                "orb.launch": 2 if i == 1 else 1, "k1.launch": 1}
 
 
 class _Chunk:
@@ -121,7 +122,8 @@ class _Chunk:
         self.scene = scene
         self.vo, self.twin_vo = (C._vo(scene, device) for _ in range(2))
         self.cache = self.vo._chunks[0].graphs
-        self.recorded = {"k1.launch": C.T, "detect.launch": C.T}
+        self.recorded = {"k1.launch": C.T, "detect.launch": C.T,
+                         "orb.launch": C.T}
 
     def call(self, i):
         return self.vo.advance(*self.C._chunk(self.scene, i))
